@@ -1,0 +1,46 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package.
+
+An AST scan of every module under ``src/repro_torch/`` and of
+``chip_smoke.py``: no ``import jax`` / ``from jax ...`` and no
+``import repro`` / ``from repro ...`` (``repro_torch`` itself is fine).
+"""
+import ast
+import pathlib
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+    [REPO / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_has_modules():
+    names = {p.relative_to(REPO / "src").as_posix() for p in FILES[:-1]}
+    for module in ("repro_torch/core/operators.py",
+                   "repro_torch/core/linear_solve.py",
+                   "repro_torch/core/diff_api.py",
+                   "repro_torch/core/implicit_diff.py",
+                   "repro_torch/kernels/batched_cg/ops.py",
+                   "repro_torch/runtime/solve_service.py",
+                   "repro_torch/launch/serve.py"):
+        assert module in names
+    assert (REPO / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(REPO)
+                         .as_posix())
+def test_no_jax_or_repro_imports(path):
+    bad = sorted({root for root in _imported_roots(path)
+                  if root in BANNED})
+    assert not bad, f"{path} imports {bad}"
