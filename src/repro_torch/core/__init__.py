@@ -14,9 +14,18 @@ Counterpart of ``repro.core``, restricted to what this port covers so far:
   linear-solve engine (``repro_torch.core.linear_solve``):
     solve, route_solve, solve_cg / normal_cg / dense_gmres / lu /
     pallas_cg, SolverSpec registry, SolveInfo
+  solver runtime (state-based, auto implicit diff, run(mode=...)):
+    IterativeSolver protocol, OptInfo diagnostics, and the solver classes
+    GradientDescent, ProximalGradient, ProjectedGradient, MirrorDescent,
+    BlockCoordinateDescent, Newton, LBFGS, FixedPointIteration,
+    AndersonAcceleration    — repro_torch.core.solver_runtime
+  optimality-condition catalog — repro_torch.core.optimality
+  projections / prox catalogs  — repro_torch.core.projections, .prox
+  legacy functional solvers    — repro_torch.core.solvers (deprecated shims)
+  bilevel driver               — repro_torch.core.bilevel
 
-The solver runtime, optimality/projection/prox catalogs, bilevel driver
-and DEQ layer are not ported yet (ROADMAP queue A).
+The DEQ layer (``implicit_layer``) is not ported yet: its default backward
+needs the ``neumann`` solver (ROADMAP queue A.3/A.6).
 
 Note: ``repro_torch.core.implicit_diff`` the *submodule* is shadowed in
 this namespace by ``implicit_diff`` the *function*.
@@ -37,5 +46,13 @@ from repro_torch.core.linear_solve import (solve, route_solve, solve_cg,
                                            SolveInfo, register_solver,
                                            get_solver, get_spec,
                                            available_solvers)
+from repro_torch.core.solver_runtime import (IterativeSolver, OptInfo,
+                                             GradientDescent,
+                                             ProximalGradient,
+                                             ProjectedGradient, MirrorDescent,
+                                             BlockCoordinateDescent, Newton,
+                                             LBFGS, FixedPointIteration,
+                                             AndersonAcceleration)
+from repro_torch.core import optimality, projections, prox, solvers, bilevel
 # imported last: the ``implicit_diff`` FUNCTION shadows the submodule name
 from repro_torch.core.diff_api import ImplicitDiffSpec, implicit_diff

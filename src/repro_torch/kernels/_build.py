@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 SOURCES = {
     "batched_cg": _HERE / "batched_cg" / "csrc" / "batched_cg.cu",
+    "simplex_proj": _HERE / "simplex_proj" / "csrc" / "simplex_proj.cu",
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,32 @@
+"""Plain PyTorch bisection: the simplex-projection kernel's CPU path.
+
+The same computation as ``repro/kernels/simplex_proj/kernel.py`` (and the
+port's CUDA kernel): in float32 whatever the input type, ``kernel.ITERS``
+(50) bisection steps on φ(τ) = Σ max(y − τ, 0) − scale over the bracket
+hi = max(y), lo = min(max(y) − scale, min(y) − scale/d), output
+max(y − τ, 0) cast back to the input type.  The sort-based oracle is
+``repro_torch.core.projections.projection_simplex``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.simplex_proj.kernel import ITERS
+
+
+def projection_simplex_rows_ref(y: torch.Tensor,
+                                scale: float = 1.0) -> torch.Tensor:
+    """y: (..., d) — project every row onto the scale-simplex."""
+    yf = y.to(torch.float32)
+    d = yf.shape[-1]
+    hi = yf.amax(dim=-1)
+    lo = torch.minimum(hi - scale, yf.amin(dim=-1) - scale / d)
+    zero = torch.zeros((), dtype=torch.float32, device=y.device)
+    for _ in range(ITERS):
+        mid = 0.5 * (lo + hi)
+        phi = torch.maximum(yf - mid[..., None], zero).sum(dim=-1) - scale
+        go_right = phi > 0                        # τ too small
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    tau = 0.5 * (lo + hi)
+    return torch.maximum(yf - tau[..., None], zero).to(y.dtype)

@@ -31,7 +31,14 @@ def test_port_has_modules():
                    "repro_torch/core/linear_solve.py",
                    "repro_torch/core/diff_api.py",
                    "repro_torch/core/implicit_diff.py",
+                   "repro_torch/core/solver_runtime.py",
+                   "repro_torch/core/optimality.py",
+                   "repro_torch/core/projections.py",
+                   "repro_torch/core/prox.py",
+                   "repro_torch/core/solvers.py",
+                   "repro_torch/core/bilevel.py",
                    "repro_torch/kernels/batched_cg/ops.py",
+                   "repro_torch/kernels/simplex_proj/ops.py",
                    "repro_torch/runtime/solve_service.py",
                    "repro_torch/launch/serve.py"):
         assert module in names
