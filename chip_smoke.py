@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's two main paths on the GPU and stops at the first failure
+Drives the port's main paths on the GPU and stops at the first failure
 with a non-zero exit: the solve service answering dense solves and
 implicit hypergradients, and ``custom_root`` implicit differentiation,
-through the hand-written batched-CG kernel (phases 3-8); and the paper's
-§4.1 multiclass-SVM hyper-parameter optimisation — ``solve_bilevel`` over a
+through the hand-written batched-CG kernel (phases 3-8); the paper's §4.1
+multiclass-SVM hyper-parameter optimisation — ``solve_bilevel`` over a
 ``ProjectedGradient`` inner solver — through the hand-written
-simplex-projection kernel (phases 9-11).  Each phase prints one line:
+simplex-projection kernel (phases 9-11); and LM serving of ``qwen1.5-4b``
+and ``rwkv6-3b`` at full width and depth — the prefill step through the
+hand-written flash-attention and WKV kernels, the decode loop, the
+launcher and the continuous-batching engine (phases 12-16).  Each phase
+prints one line:
 
   1. card: name, device count, ``nvidia-smi`` name and power limit;
-  2. build: both kernels are compiled from the repo's sources (one
+  2. build: the four kernels are compiled from the repo's sources (one
      ``nvcc`` each, started together; ``-Xptxas -v``: registers, shared
      memory, spills);
   3. kernel against plain: forward and backward (∂A, ∂b of Σx²) of the
@@ -60,11 +64,55 @@ simplex-projection kernel (phases 9-11).  Each phase prints one line:
      (50000, 100) float32 by CUDA events, its bound, the plain version, the
      sort-based projection (information only: ``library_ms`` is null, no
      single PyTorch call projects onto the simplex), and the SVM phase's
-     seconds per inner iteration, per backward solve and per outer step.
+     seconds per inner iteration, per backward solve and per outer step;
+ 12. flash-attention kernel against plain: the op on CUDA tensors against
+     ``attention_ref`` (top-left causal) at (B, S, H, Hkv, D) ∈
+     {(2, 128, 4, 4, 64) causal and not, (2, 200, 8, 2, 128) GQA with a
+     ragged tile, (4, 2048, 20, 20, 128) the prefill shape}, float32 and
+     bfloat16: max |Δ| ≤ 1e-4·max|ref| in float32 (sums in another
+     order), |Δ| ≤ 2⁻⁷|ref| + 1e-4·max|ref| in bfloat16 (one rounding of
+     the output, one bf16 unit at most);
+ 13. WKV kernel against plain: the op against ``wkv_scan_ref`` at (B, T, H)
+     ∈ {(1, 1, 1), (2, 100, 3), (4, 2048, 40)}, head size 64, float32 and
+     bfloat16 r/k/v with float32 w, with the same limits, and a state
+     carried across a split of T equal bit for bit to one run;
+ 14. ``qwen1.5-4b`` at its full published config (40 layers, d 2560,
+     vocab 151,936), parameters drawn on the card from ``--seed``, tokens
+     (B, S) = (4, 2048).  In float32 (the algorithm at full size):
+     ``make_prefill_step(use_kernel=True)`` with exactly 40 flash-attention
+     launches, its logits against ``use_kernel=False`` within ‖Δ‖/‖ref‖ ≤
+     1e-3; token-by-token ``decode_step`` over (2, 64) against the prefill
+     logits within a limit set per model from its readings (1e-5 here, 5e-3
+     for ``rwkv6-3b``), and the same at full width and 1 and 4 layers
+     within 1e-5 for both (a fault of the carried state shows at any
+     depth; rounding grows with it; see PERF.md).  In bfloat16, the served
+     type and the main path: exactly 40 launches, the logits against
+     ``use_kernel=False`` within a fixed limit per model (5e-2 here, 8e-2
+     for ``rwkv6-3b``, set between the floor — the same prefill with the
+     op's plain version in the kernel's place — and the controls; see
+     PERF.md); in both types a prefill with a zeroed attention output and
+     one with its S and H axes swapped must land above that limit;
+     decode against prefill reported; the LM launcher's ``main`` at batch
+     4, prompt 16, gen 16; ``ContinuousBatchingEngine(num_slots=8)``
+     serving 16 requests (prompts of 8-32 tokens, 16 new tokens each), all
+     complete, and a request served alone equal token for token to the
+     same request admitted with 7 others;
+ 15. ``rwkv6-3b`` at its full config (32 layers, d 2560, 40 heads of 64):
+     the same as 14 with the WKV kernel, exactly 32 launches per prefill
+     step, the controls a zeroed WKV output and one with T and H swapped;
+ 16. times, with the card's name and power limit: the flash-attention
+     kernel at the prefill shape (bfloat16, causal) by CUDA events, its
+     bound, the plain version and ``F.scaled_dot_product_attention`` on
+     the same tensors (yardstick only — the port never calls it); the WKV
+     kernel at (4, 2048, 40, 64) bfloat16 r/k/v, its bound, the plain scan
+     and ``wkv_chunked`` (no single PyTorch call computes it); the prefill
+     step's ms and tokens/s with and without the kernels and the decode
+     tokens/s of the launcher and the engine, for both models.
 
 Kernel launches are counted by each kernel's ``ops.LAUNCHES``, set to 0
-just before each main-path phase (4-7 for batched_cg, 10 for simplex_proj)
-and read just after.  The line before the last is a JSON object describing
+just before each main-path phase (4-7 for batched_cg, 10 for simplex_proj,
+each kernel prefill of 14 for flash_attention and of 15 for rwkv_wkv; the
+JSON line reports the bfloat16 one) and read just after.  The line before the last is a JSON object describing
 each kernel; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repo's ``src/`` beside it, the script exits
 non-zero and prints no result.
@@ -102,6 +150,30 @@ SVM_OUTER_LR = 0.01
 SVM_LINSOLVE = dict(linsolve_tol=1e-6, linsolve_maxiter=800)
 SVM_MAXITER = 6000
 SVM_GRAD_RTOL = 1e-2               # float32 kernel vs float64 sort-based
+
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:27"
+WKV_SOURCE = "src/repro_torch/kernels/rwkv_wkv/csrc/rwkv_wkv.cu"
+WKV_REPLACES = "src/repro/kernels/rwkv_wkv/kernel.py:21"
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
+# phase 12: (B, S, H, Hkv, D, causal); the last is qwen1.5-4b's prefill
+FA_SHAPES = [(2, 128, 4, 4, 64, True), (2, 128, 4, 4, 64, False),
+             (2, 200, 8, 2, 128, True), (4, 2048, 20, 20, 128, True)]
+WKV_SHAPES = [(1, 1, 1), (2, 100, 3), (4, 2048, 40)]   # (B, T, H), N = 64
+LM_PREFILL = (4, 2048)             # (B, S) of the prefill step
+LM_DECODE = (2, 64)                # (B, S) of decode against prefill
+LM_F32_RTOL = 1e-3                 # ‖Δ‖/‖ref‖ of float32 prefill logits
+# ‖Δ‖/‖ref‖ of float32 decode logits against prefill at full depth, each
+# set from its model's readings (PERF.md §6); and at the cut depths of the
+# decode witness (full width, 1 and 4 layers), for both models
+LM_DECODE_RTOL = {"qwen1.5-4b": 1e-5, "rwkv6-3b": 5e-3}
+LM_DECODE_DEPTHS = (1, 4)
+LM_DECODE_SHALLOW_RTOL = 1e-5
+# ‖Δ‖/‖ref‖ of bfloat16 kernel prefill logits against use_kernel=False,
+# fixed per model between the plain op's floor and the controls (PERF.md)
+LM_RTOL = {"qwen1.5-4b": 5e-2, "rwkv6-3b": 8e-2}
+ENGINE = dict(num_slots=8, requests=16, prompt=(8, 32), new_tokens=16,
+              max_len=64)
 
 
 def fail(msg: str) -> None:
@@ -602,6 +674,442 @@ def phase_simplex_times(device, gen):
                 t_bytes=t_bytes, t_flops=t_flops)
 
 
+def bf16_limit(want, dtype):
+    """float32: 1e-4 of the largest |ref| (sums in another order);
+    bfloat16: one rounding of the output, at most one bf16 unit (2⁻⁷ of
+    the value), plus that."""
+    import torch
+    big = float(want.float().abs().max())
+    if dtype == torch.float32:
+        return torch.full_like(want, 1e-4 * big, dtype=torch.float32)
+    return 2.0 ** -7 * want.float().abs() + 1e-4 * big
+
+
+def check_close(got, want, dtype, what):
+    """Kernel output against plain under ``bf16_limit``; returns max |Δ|."""
+    err = (got.float() - want.float()).abs()
+    worst = float((err - bf16_limit(want, dtype)).max())
+    check(got.dtype == want.dtype and got.shape == want.shape and worst <= 0,
+          f"{what}: max |Δ| {float(err.max()):.3e} over the limit by "
+          f"{worst:.3e}")
+    return float(err.max())
+
+
+def phase_flash_vs_plain(device, gen, shapes):
+    """Flash-attention kernel (via the op) against the plain version."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    worst, err_main = {}, None
+    for B, S, H, Hkv, D, causal in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, S, H, D, generator=gen, device=device)
+            k = torch.randn(B, S, Hkv, D, generator=gen, device=device)
+            v = torch.randn(B, S, Hkv, D, generator=gen, device=device)
+            q, k, v = (a.to(dtype) for a in (q, k, v))
+            got = ops.flash_attention(q, k, v, causal=causal)
+            sync(device)
+            want = ref.attention_ref(q, k, v, causal=causal)
+            name = str(dtype).replace("torch.", "")
+            key = (B, S, H, Hkv, D, "causal" if causal else "full", name)
+            worst[key] = check_close(got, want, dtype,
+                                     f"flash_attention vs plain at {key}")
+            if (B, S, H, D, name) == (4, 2048, 20, 128, "bfloat16"):
+                err_main = worst[key]
+            del q, k, v, got, want
+    return worst, err_main
+
+
+def wkv_inputs(device, gen, B, T, H, dtype, with_state=False):
+    """r, k, v ~ N(0, 1/4) in ``dtype``; w = exp(-exp(-6 + tanh(N(0, 1))))
+    as the model's decay, float32; u ~ N(0, 1/100); state0 ~ N(0, 1)."""
+    import torch
+    N = 64
+    r, k, v = (0.5 * torch.randn(B, T, H, N, generator=gen, device=device)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + torch.tanh(torch.randn(
+        B, T, H, N, generator=gen, device=device))))
+    u = 0.1 * torch.randn(H, N, generator=gen, device=device)
+    s0 = torch.randn(B, H, N, N, generator=gen, device=device) \
+        if with_state else None
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, u, s0
+
+
+def phase_wkv_vs_plain(device, gen, shapes):
+    """WKV kernel (via the op) against the plain scan, and a state carried
+    across a split of T."""
+    import torch
+    from repro_torch.kernels.rwkv_wkv import ops, ref
+    worst, err_main = {}, None
+    for B, T, H in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_state in (False, True):
+                r, k, v, w, u, s0 = wkv_inputs(device, gen, B, T, H, dtype,
+                                               with_state)
+                out, state = ops.wkv(r, k, v, w, u, s0)
+                sync(device)
+                want, want_s = ref.wkv_scan_ref(r, k, v, w, u, s0)
+                name = str(dtype).replace("torch.", "")
+                key = (B, T, H, name, "state0" if with_state else "zeros")
+                e_o = check_close(out, want, dtype, f"wkv vs plain at {key}")
+                e_s = check_close(state, want_s, torch.float32,
+                                  f"wkv final state vs plain at {key}")
+                worst[key] = (e_o, e_s)
+                if (B, T, H, name, with_state) == (4, 2048, 40, "bfloat16",
+                                                   False):
+                    err_main = e_o
+    r, k, v, w, u, s0 = wkv_inputs(device, gen, 2, 100, 3, torch.float32,
+                                   True)
+    o_all, s_all = ops.wkv(r, k, v, w, u, s0)
+    o1, s1 = ops.wkv(r[:, :37], k[:, :37], v[:, :37], w[:, :37], u, s0)
+    o2, s2 = ops.wkv(r[:, 37:], k[:, 37:], v[:, 37:], w[:, 37:], u, s1)
+    sync(device)
+    check(torch.equal(torch.cat([o1, o2], 1), o_all)
+          and torch.equal(s2, s_all),
+          "wkv kernel: a state carried across a split of T differs from one "
+          "run over T")
+    return worst, err_main
+
+
+def logits_error(got, want):
+    """(‖Δ‖/‖ref‖, max |Δ|) of two logits tensors, in float32."""
+    import torch
+    d = got.float() - want.float()
+    out = (float(torch.linalg.vector_norm(d)
+                 / torch.linalg.vector_norm(want.float())),
+           float(d.abs().max()))
+    del d
+    return out
+
+
+def lm_prefill_checks(cfg, params, tokens, ops, op_name, replacements):
+    """The prefill step with the kernel (launches counted just around it)
+    against the plain prefill (``use_kernel=False``), and the same kernel
+    prefill with ``ops.<op_name>`` replaced: ``replacements`` maps a name
+    to a function of the real op that returns the replacement.  Each
+    replacement's logits are measured against the plain prefill and
+    against the kernel prefill."""
+    import torch
+    from repro_torch.runtime import make_prefill_step
+    kernel_step = make_prefill_step(cfg, use_kernel=True)
+    ops.LAUNCHES = 0
+    logits = kernel_step(params, tokens)
+    sync(tokens.device)
+    launches = ops.LAUNCHES
+    want = make_prefill_step(cfg, use_kernel=False)(params, tokens)
+    err = logits_error(logits, want)
+    finite = bool(torch.isfinite(logits).all())
+    shape_ok = tuple(logits.shape) == tuple(tokens.shape) + (cfg.vocab_size,)
+    others = {}
+    real = getattr(ops, op_name)
+    for name, make in replacements.items():
+        setattr(ops, op_name, make(real))
+        try:
+            got = kernel_step(params, tokens)
+        finally:
+            setattr(ops, op_name, real)
+        others[name] = (logits_error(got, want)[0],
+                        logits_error(got, logits)[0])
+        del got
+    del logits, want
+    return dict(launches=launches, err=err, others=others, finite=finite,
+                shape_ok=shape_ok)
+
+
+def lm_decode_vs_prefill(cfg, params, tokens):
+    """Token-by-token decode_step against the kernel prefill's logits:
+    ‖Δ‖/‖ref‖ and max |Δ| over all positions, ‖Δ‖/‖ref‖ over the later
+    half and at each position, and the argmax agreement."""
+    import torch
+    from repro_torch.models import init_decode_state
+    from repro_torch.runtime import make_decode_step, make_prefill_step
+    B, S = tokens.shape
+    full = make_prefill_step(cfg, use_kernel=True)(params, tokens)
+    step = make_decode_step(cfg)
+    state = init_decode_state(cfg, B, S, device=tokens.device)
+    outs = []
+    for t in range(S):
+        lg, state = step(params, state, tokens[:, t:t + 1])
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, 1)
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    late = logits_error(dec[:, S // 2:], full[:, S // 2:])[0]
+    per_pos = [logits_error(dec[:, t], full[:, t])[0] for t in range(S)]
+    return dict(err=logits_error(dec, full), late=late, per_pos=per_pos,
+                agree=agree)
+
+
+def lm_engine(cfg, params, gen, device):
+    """16 requests through ContinuousBatchingEngine(num_slots=8); then
+    request 0 (admitted at the first tick with 7 others) served alone."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import ContinuousBatchingEngine
+    lo, hi = ENGINE["prompt"]
+    lens = torch.randint(lo, hi + 1, (ENGINE["requests"],), generator=gen,
+                         device=device).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device=device).cpu().numpy().astype(np.int32)
+               for n in lens]
+    eng = ContinuousBatchingEngine(cfg, params,
+                                   num_slots=ENGINE["num_slots"],
+                                   max_len=ENGINE["max_len"])
+    for p in prompts:
+        eng.submit(p, max_new_tokens=ENGINE["new_tokens"])
+    sync(device)
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    sync(device)
+    wall = time.perf_counter() - t0
+    alone = ContinuousBatchingEngine(cfg, params,
+                                     num_slots=ENGINE["num_slots"],
+                                     max_len=ENGINE["max_len"])
+    alone.submit(prompts[0], max_new_tokens=ENGINE["new_tokens"])
+    alone_tokens = alone.run_until_drained()[0].generated
+    together = [r for r in done if r.uid == 0][0].generated
+    return dict(done=len(done), complete=all(
+        r.state == "done" and len(r.generated) == ENGINE["new_tokens"]
+        for r in done), same=alone_tokens == together, wall=wall,
+        steps=eng.metrics["steps"], tokens=eng.metrics["tokens"],
+        occupancy=eng.occupancy, prompt_lens=lens)
+
+
+def lm_launcher(arch, seed, device):
+    """The LM launcher's main() at batch 4, prompt 16, gen 16."""
+    from repro_torch.launch import serve
+    return serve.main(["--arch", arch, "--batch", "4", "--prompt-len", "16",
+                       "--gen", "16", "--seed", str(seed), "--device",
+                       str(device)])
+
+
+def prefill_time(cfg, params, tokens, use_kernel, reps=3):
+    """Median host-clock seconds of one prefill step, synchronised."""
+    from repro_torch.runtime import make_prefill_step
+    step = make_prefill_step(cfg, use_kernel=use_kernel)
+    times = []
+    for _ in range(reps):
+        sync(tokens.device)
+        t0 = time.perf_counter()
+        step(params, tokens)
+        sync(tokens.device)
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def free(device):
+    if device.type == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+
+
+def phase_lm(device, gen, arch, seed, ops, op_name, plain_op):
+    """One full-size model.  In float32 (the algorithm at full size): the
+    kernel prefill against the plain prefill, the controls, decode against
+    prefill.  In the config's bfloat16 (the served type, the main path):
+    the kernel prefill with its launches counted, against the plain
+    prefill and against the floor (the op's plain version in place of the
+    kernel), decode against prefill, the engine, the launcher, times."""
+    import dataclasses
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    cfg = configs.get(arch)
+    B, S = LM_PREFILL
+    Bd, Sd = LM_DECODE
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=device)
+
+    controls = {"zeroed output": zeroed, "swapped axes": swapped}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, gen, device=device)
+    f32 = lm_prefill_checks(cfg32, params, tokens, ops, op_name, controls)
+    f32["dec"] = lm_decode_vs_prefill(cfg32, params, tokens[:Bd, :Sd])
+    del params
+    free(device)
+    # the decode witness: the same check at full width and cut depth, on
+    # parameters of its own generator (so the later draws stay as they were)
+    f32["dec_depth"] = {}
+    for depth in LM_DECODE_DEPTHS:
+        cut = dataclasses.replace(cfg32, num_layers=depth)
+        params = init_params(cut, torch.Generator(device=device).manual_seed(
+            seed + depth), device=device)
+        f32["dec_depth"][depth] = lm_decode_vs_prefill(
+            cut, params, tokens[:Bd, :Sd])
+        del params
+        free(device)
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    bf16 = lm_prefill_checks(cfg, params, tokens, ops, op_name,
+                             {"plain op": lambda real: plain_op, **controls})
+    bf16["dec"] = lm_decode_vs_prefill(cfg, params, tokens[:Bd, :Sd])
+    engine = lm_engine(cfg, params, gen, device)
+    times = dict(kernel_s=prefill_time(cfg, params, tokens, True),
+                 plain_s=prefill_time(cfg, params, tokens, False))
+    del params, tokens
+    free(device)
+    launcher = lm_launcher(arch, seed, device)
+    del launcher["logits"]
+    free(device)
+    return dict(cfg=cfg, n_params=n_params, init_s=init_s, f32=f32,
+                bf16=bf16, engine=engine, launcher=launcher, **times)
+
+
+def check_lm(res, name, want_launches, tag):
+    """The hard checks of phases 14 and 15."""
+    f32, bf16, arch = res["f32"], res["bf16"], res["cfg"].name
+    limit = LM_RTOL[arch]
+    for kind, r in (("float32", f32), ("bfloat16", bf16)):
+        check(r["launches"] == want_launches,
+              f"phase {tag}: {r['launches']} {name} launches in one "
+              f"{kind} prefill step, expected {want_launches}")
+        check(r["finite"] and r["shape_ok"], f"phase {tag}: {kind} prefill "
+              "logits not finite or of the wrong shape")
+        for control in ("zeroed output", "swapped axes"):
+            e = r["others"][control][0]
+            check(e > limit, f"phase {tag}: a {kind} prefill with {control} "
+                  f"is within {limit} of the plain one ({e:.3e})")
+    check(f32["err"][0] <= LM_F32_RTOL,
+          f"phase {tag}: float32 kernel prefill vs plain ‖Δ‖/‖ref‖ = "
+          f"{f32['err'][0]:.3e} > {LM_F32_RTOL}")
+    dec = f32["dec"]["err"][0]
+    check(dec <= LM_DECODE_RTOL[arch], f"phase {tag}: float32 decode vs "
+          f"prefill ‖Δ‖/‖ref‖ = {dec:.3e} > {LM_DECODE_RTOL[arch]}")
+    for depth, d in f32["dec_depth"].items():
+        check(d["err"][0] <= LM_DECODE_SHALLOW_RTOL,
+              f"phase {tag}: float32 decode vs prefill at {depth} layers "
+              f"‖Δ‖/‖ref‖ = {d['err'][0]:.3e} > {LM_DECODE_SHALLOW_RTOL}")
+    check(bf16["err"][0] <= limit,
+          f"phase {tag}: bfloat16 kernel prefill vs plain ‖Δ‖/‖ref‖ = "
+          f"{bf16['err'][0]:.3e} > {limit}")
+    e = res["engine"]
+    check(e["done"] == ENGINE["requests"] and e["complete"],
+          f"phase {tag}: the engine finished {e['done']} of "
+          f"{ENGINE['requests']} requests")
+    check(e["same"], f"phase {tag}: a request served alone differs from the "
+          "same request served with others")
+    check(res["launcher"]["tokens"].shape == (4, 16),
+          f"phase {tag}: the launcher returned tokens of shape "
+          f"{tuple(res['launcher']['tokens'].shape)}")
+
+
+def say_decode(d):
+    """One decode-vs-prefill reading: all, later half, the first four
+    positions, the largest of each quarter, argmax agreement."""
+    pos, q = d["per_pos"], max(1, len(d["per_pos"]) // 4)
+    return (f"{d['err'][0]:.3e} (later half {d['late']:.3e}; positions 0-3 "
+            + " ".join(f"{e:.2e}" for e in pos[:4]) + "; max per quarter "
+            + " ".join(f"{max(pos[i:i + q]):.2e}"
+                       for i in range(0, len(pos), q))
+            + f"; argmax agreement {d['agree']:.4f})")
+
+
+def say_lm(res, tag, name):
+    e, cfg, f32, bf16 = res["engine"], res["cfg"], res["f32"], res["bf16"]
+    limit = LM_RTOL[cfg.name]
+    say(tag, f"{cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}, "
+        f"vocab={cfg.vocab_size}, {res['n_params']:,} parameters, bfloat16 "
+        f"drawn in {res['init_s']:.2f} s), prefill {LM_PREFILL}, "
+        f"‖Δ‖/‖ref‖ of logits | float32: {name} launches="
+        f"{f32['launches']}, kernel vs plain {f32['err'][0]:.3e} (max|Δ| "
+        f"{f32['err'][1]:.3e}, limit {LM_F32_RTOL}), controls " + ", ".join(
+            f"{k} {v[0]:.3e}" for k, v in f32["others"].items())
+        + f" (must exceed {limit}); decode vs prefill {LM_DECODE} "
+        + say_decode(f32["dec"]) + f", limit {LM_DECODE_RTOL[cfg.name]}; "
+        "at full width and cut depth: " + ", ".join(
+            f"{depth} layers {say_decode(d)}"
+            for depth, d in f32["dec_depth"].items())
+        + f", limit {LM_DECODE_SHALLOW_RTOL}"
+        f" | bfloat16: launches={bf16['launches']}, kernel vs plain "
+        f"{bf16['err'][0]:.3e} (max|Δ| {bf16['err'][1]:.3e}, limit {limit})"
+        f"; the op's plain version in the kernel's place vs plain "
+        f"{bf16['others']['plain op'][0]:.3e} and vs the kernel prefill "
+        f"{bf16['others']['plain op'][1]:.3e}; controls " + ", ".join(
+            f"{k} {v[0]:.3e}" for k, v in bf16["others"].items()
+            if k != "plain op")
+        + f" (must exceed {limit}); decode vs prefill "
+        + say_decode(bf16["dec"]) + " not gated"
+        f" | launcher batch 4 prompt 16 "
+        f"gen 16: tokens[0,:8]={res['launcher']['tokens'][0, :8].tolist()}"
+        f" | engine: {e['done']}/{ENGINE['requests']} requests complete in "
+        f"{e['steps']} steps, occupancy {e['occupancy']:.3f}, alone == "
+        f"together: {e['same']}")
+
+
+def flash_times(device, gen):
+    """Flash-attention kernel, plain and SDPA at the prefill shape
+    (bfloat16, causal), and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ref
+    B, S, H, D = 4, 2048, 20, 128
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    ms = cuda_time_ms(lambda: kernel.launch(q, k, v, True), reps=10)
+    plain_ms = cuda_time_ms(
+        lambda: ref.attention_ref(q, k, v, True), reps=3)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=10)
+    flops = 2 * 2 * B * H * D * (S * (S + 1) // 2)   # QKᵀ and PV, causal
+    nbytes = 2 * 4 * B * S * H * D                   # q, k, v read, o written
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / BF16_FLOPS * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                t_bytes=t_bytes, t_flops=t_flops, gflop=flops / 1e9)
+
+
+def wkv_times(device, gen):
+    """WKV kernel, plain scan and wkv_chunked at (4, 2048, 40, 64) with
+    bfloat16 r/k/v and float32 w, and the bound."""
+    import torch
+    from repro_torch.kernels.rwkv_wkv import kernel, ref
+    from repro_torch.models.rwkv import wkv_chunked
+    B, T, H, N = 4, 2048, 40, 64
+    r, k, v, w, u, _ = wkv_inputs(device, gen, B, T, H, torch.bfloat16)
+    ms = cuda_time_ms(lambda: kernel.launch(r, k, v, w, u), reps=10)
+    plain_ms = cuda_time_ms(lambda: ref.wkv_scan_ref(r, k, v, w, u), reps=1)
+    chunked_ms = cuda_time_ms(lambda: wkv_chunked(r, k, v, w, u), reps=3)
+    n = B * T * H * N
+    # r, k, v (bf16) and w (f32) read, o (bf16) and the final state written
+    nbytes = n * (3 * 2 + 4 + 2) + B * H * N * N * 4
+    flops = 5 * N * N * B * T * H      # 2N² for o, 3N² for S a (b, h, t)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, chunked_ms=chunked_ms,
+                bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                t_bytes=t_bytes, t_flops=t_flops, mb=nbytes / 1e6,
+                gflop=flops / 1e9)
+
+
+def zeroed(op):
+    """A replacement of a kernel op whose attention / WKV output is 0."""
+    def fn(*args, **kw):
+        out = op(*args, **kw)
+        if isinstance(out, tuple):
+            return (out[0].zero_(),) + tuple(out[1:])
+        return out.zero_()
+    return fn
+
+
+def swapped(op):
+    """A replacement of a kernel op whose output has its sequence and head
+    axes swapped (the layout fault of a transposed output)."""
+    def fn(*args, **kw):
+        out = op(*args, **kw)
+        first = out[0] if isinstance(out, tuple) else out
+        B, S, H, D = first.shape
+        bad = first.transpose(1, 2).contiguous().reshape(B, S, H, D)
+        return (bad,) + tuple(out[1:]) if isinstance(out, tuple) else bad
+    return fn
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> None:
@@ -637,12 +1145,14 @@ def main(argv=None) -> None:
     _build.build()
     built_s = time.perf_counter() - t0
     for kname, source in (("batched_cg", KERNEL_SOURCE),
-                          ("simplex_proj", SIMPLEX_SOURCE)):
+                          ("simplex_proj", SIMPLEX_SOURCE),
+                          ("flash_attention", FA_SOURCE),
+                          ("rwkv_wkv", WKV_SOURCE)):
         ptx = " | ".join(line.split("ptxas info    : ")[-1].strip()
                          for line in _build.build_log(kname).splitlines()
                          if "registers" in line or "spill" in line)
-        say("2 build", f"{kname} from {source} (both in {built_s:.1f} s, 0 "
-            f"if cached): {ptx}")
+        say("2 build", f"{kname} from {source} (all four in {built_s:.1f} s,"
+            f" 0 if cached): {ptx}")
 
     # 3. kernel against plain
     worst, err_main = phase_kernel_vs_plain(
@@ -775,6 +1285,57 @@ def main(argv=None) -> None:
             for st in s10["steps"])
         + f"; float64 sort-based step {s10['s64']:.3f} s")
 
+    # 12. flash-attention kernel against plain
+    worst12, err12 = phase_flash_vs_plain(device, gen, FA_SHAPES)
+    say("12 flash vs plain", "max |Δ| per (B, S, H, Hkv, D, mask, dtype): "
+        + ", ".join(f"{k}={e:.2e}" for k, e in worst12.items()))
+
+    # 13. WKV kernel against plain
+    worst13, err13 = phase_wkv_vs_plain(device, gen, WKV_SHAPES)
+    say("13 wkv vs plain", "max |Δ| (output, final state) per (B, T, H, "
+        "dtype, state): " + ", ".join(
+            f"{k}=({o:.2e}, {st:.2e})" for k, (o, st) in worst13.items())
+        + "; state carried across a split of T: bit for bit")
+
+    # 14. qwen1.5-4b, 15. rwkv6-3b
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv_wkv import ops as wkv_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rwkv_wkv.ref import wkv_scan_ref
+    s14 = phase_lm(device, gen, "qwen1.5-4b", args.seed, fa_ops,
+                   "flash_attention", attention_ref)
+    check_lm(s14, "flash_attention", 40, 14)
+    say_lm(s14, "14 qwen1.5-4b", "flash_attention")
+    s15 = phase_lm(device, gen, "rwkv6-3b", args.seed, wkv_ops, "wkv",
+                   wkv_scan_ref)
+    check_lm(s15, "rwkv_wkv", 32, 15)
+    say_lm(s15, "15 rwkv6-3b", "rwkv_wkv")
+
+    # 16. times
+    t16 = flash_times(device, gen)
+    w16 = wkv_times(device, gen)
+    tok = LM_PREFILL[0] * LM_PREFILL[1]
+    say("16 times", f"[{card}] flash_attention (4, 2048, 20, 128) bfloat16 "
+        f"causal: kernel {t16['ms']:.4f} ms, bound {t16['bound_ms']:.4f} ms "
+        f"({t16['gflop']:.1f} GFLOP: operations {t16['t_flops']:.4f} ms, "
+        f"bytes {t16['t_bytes']:.4f} ms), plain {t16['plain_ms']:.4f} ms, "
+        f"F.scaled_dot_product_attention {t16['library_ms']:.4f} ms | "
+        f"rwkv_wkv (4, 2048, 40, 64) bfloat16 r/k/v: kernel "
+        f"{w16['ms']:.4f} ms, bound {w16['bound_ms']:.4f} ms ("
+        f"{w16['gflop']:.2f} GFLOP at 5N² a step: operations "
+        f"{w16['t_flops']:.4f} ms; {w16['mb']:.1f} MB: bytes "
+        f"{w16['t_bytes']:.4f} ms), plain scan {w16['plain_ms']:.4f} ms, "
+        f"wkv_chunked {w16['chunked_ms']:.4f} ms | " + " | ".join(
+            f"{r['cfg'].name} prefill {LM_PREFILL}: kernel "
+            f"{r['kernel_s'] * 1e3:.2f} ms ({tok / r['kernel_s']:.0f} "
+            f"tok/s), plain {r['plain_s'] * 1e3:.2f} ms "
+            f"({tok / r['plain_s']:.0f} tok/s); launcher decode batch 4: "
+            f"{r['launcher']['decode_tok_s']:.1f} tok/s (its token-by-token "
+            f"prompt prefill {r['launcher']['prefill_s'] * 1e3:.1f} ms); "
+            f"engine {r['engine']['tokens'] / r['engine']['wall']:.1f} tok/s"
+            f" ({r['engine']['steps']} steps in {r['engine']['wall']:.2f} s)"
+            for r in (s14, s15)))
+
     launches = s4["launches"] + s5["launches"] + s6["fwd"] + s6["bwd"] \
         + s7["launches"]
     print(json.dumps({"kernels": [{
@@ -787,6 +1348,16 @@ def main(argv=None) -> None:
         "replaces": SIMPLEX_REPLACES, "launches": s10["launches"],
         "max_abs_err": err9, "ms": t11["ms"], "plain_ms": t11["plain_ms"],
         "bound_ms": t11["bound_ms"], "bound_by": t11["bound_by"],
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+        "replaces": FA_REPLACES, "launches": s14["bf16"]["launches"],
+        "max_abs_err": err12, "ms": t16["ms"], "plain_ms": t16["plain_ms"],
+        "bound_ms": t16["bound_ms"], "bound_by": t16["bound_by"],
+        "library_ms": t16["library_ms"]}, {
+        "name": "rwkv_wkv", "route": "cuda", "source": WKV_SOURCE,
+        "replaces": WKV_REPLACES, "launches": s15["bf16"]["launches"],
+        "max_abs_err": err13, "ms": w16["ms"], "plain_ms": w16["plain_ms"],
+        "bound_ms": w16["bound_ms"], "bound_by": w16["bound_by"],
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

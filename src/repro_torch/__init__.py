@@ -6,10 +6,12 @@ and so on).  It imports ``torch`` and numpy, never ``jax`` and nothing of
 ``repro``.  Entry points that take host data run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 
-Ported so far: the linear operators, the solve registry and the
-implicit-diff API (``core``), the observability layer, the batched-CG
-kernel (a hand-written CUDA kernel for Hopper, ``kernels.batched_cg``),
-the solve service (``runtime``) and its launcher (``launch.serve``), and
-``interop`` for moving problem data and state between the packages.
-ROADMAP.md lists what is still to port.
+Ported so far: the linear operators, the solve registry, the
+implicit-diff API, the solver runtime and the bilevel driver (``core``);
+the observability layer; the solve service, the LM serving engine and
+the serve steps (``runtime``); the dense and RWKV-6 models (``models``,
+``configs``); the launcher (``launch.serve``); ``interop`` for moving
+problem data, state and model weights between the packages; and the four
+kernels, written by hand in CUDA for Hopper (``kernels``).  ROADMAP.md
+lists what is still to port.
 """

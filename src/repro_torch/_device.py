@@ -1,10 +1,12 @@
 """The port's device rule: entry points run on ``cuda`` unless told otherwise.
 
-An entry point that takes host data (``SolveService``, ``batched_cg``,
-``interop.from_numpy``, the serve launcher) takes ``device=``; ``None``
-means ``"cuda"``.  On a host without a CUDA device that raises — the port
-never falls back to the CPU in silence; callers that want the CPU (the
-tests) pass ``device="cpu"``.  Functions that take tensors run where their
+An entry point that takes host data or makes tensors from nothing
+(``SolveService``, ``batched_cg``, ``interop.from_numpy``,
+``interop.params_from_numpy``, ``models.init_params``,
+``models.init_decode_state``, the serve launcher) takes ``device=``;
+``None`` means ``"cuda"``.  On a host without a CUDA device that raises —
+the port never falls back to the CPU in silence; callers that want the
+CPU (the tests) pass ``device="cpu"``.  Functions that take tensors run where their
 tensors live.
 """
 from __future__ import annotations

@@ -1,13 +1,21 @@
-"""Move problem data and state between numpy (and so the JAX package) and
-the PyTorch port.
+"""Move problem data, state and model weights between numpy (and so the JAX
+package) and the PyTorch port.
 
-This system has no model weights: its state is the problem data and the
-warm-start cache.  :func:`from_numpy` maps a pytree of numpy arrays
-(dicts, tuples, lists) to tensors on a device, :func:`to_numpy` maps
-tensors back, so that one set of inputs can feed both packages.  The
-warm-start cache crosses through its own ``.npz`` format
-(``repro_torch.runtime.WarmStartCache.load`` reads what
-``repro.runtime.WarmStartCache.save`` wrote).
+:func:`from_numpy` maps a pytree of numpy arrays (dicts, tuples, lists) to
+tensors on a device, :func:`to_numpy` maps tensors back, so that one set
+of inputs can feed both packages.  The warm-start cache crosses through
+its own ``.npz`` format (``repro_torch.runtime.WarmStartCache.load`` reads
+what ``repro.runtime.WarmStartCache.save`` wrote).
+
+Model weights cross with :func:`params_from_numpy` and
+:func:`params_to_numpy`.  The JAX pytree and the port's parameter dict
+have the same names (``embed/tok``, ``blocks/attn/w_q``, …) and the same
+``(d_in, d_out)`` weight layout; the only change is that the JAX
+``blocks`` subtree stacks the layers on a leading L axis and the port keeps
+a list of per-layer dicts.  bfloat16 arrays reach numpy as
+``ml_dtypes.bfloat16``, which ``torch`` does not read: they are recognised
+by their dtype's name and their bits reinterpreted (``view`` as 16-bit
+integers, then as ``torch.bfloat16``), without importing ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -36,3 +44,59 @@ def to_numpy(tree):
     return pytree.tree_map(
         lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
         else x, tree)
+
+
+def _leaf_to_tensor(a, device) -> torch.Tensor:
+    a = np.array(a)                       # a writable copy for from_numpy
+    if a.dtype.name == "bfloat16":
+        a = a.view(np.int16)
+        return torch.from_numpy(a).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree, cfg, device=None):
+    """The JAX package's parameter pytree of ``cfg``, given as numpy arrays
+    (``jax.tree_util.tree_map(np.asarray, params)``), as the port's
+    parameters on ``device`` (default ``cuda``), every leaf keeping its
+    dtype."""
+    from repro_torch.models.model import check_supported
+    check_supported(cfg)
+    dev = _device.resolve(device)
+    extra = set(tree) - {"embed", "blocks", "final_norm"}
+    if extra:
+        raise ValueError(f"params_from_numpy: unexpected subtrees {extra}")
+
+    def conv(t):
+        return pytree.tree_map(lambda a: _leaf_to_tensor(a, dev), t)
+
+    depths = {np.shape(a)[0] for a in pytree.tree_leaves(tree["blocks"])}
+    if depths != {cfg.num_layers}:
+        raise ValueError(f"params_from_numpy: blocks stacked to depths "
+                         f"{sorted(depths)}, {cfg.name} has "
+                         f"{cfg.num_layers} layers")
+    return {"embed": conv(tree["embed"]),
+            "blocks": [conv(pytree.tree_map(lambda a: a[i], tree["blocks"]))
+                       for i in range(cfg.num_layers)],
+            "final_norm": conv(tree["final_norm"])}
+
+
+def params_to_numpy(params, bfloat16=None):
+    """The port's parameters as the JAX package's pytree of numpy arrays
+    (``blocks`` stacked on a leading L axis).  bfloat16 tensors come back
+    as arrays of the numpy dtype ``bfloat16`` when one is given (for
+    example ``jax.numpy.bfloat16``: the bits are carried over exactly),
+    else widened to float32 (also exact)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            if bfloat16 is not None:
+                return t.view(torch.int16).numpy().view(bfloat16)
+            t = t.to(torch.float32)
+        return t.numpy()
+
+    spec = pytree.tree_flatten(params["blocks"][0])[1]
+    layers = zip(*(pytree.tree_flatten(b)[0] for b in params["blocks"]))
+    blocks = pytree.tree_unflatten([torch.stack(ls) for ls in layers], spec)
+    return {"embed": pytree.tree_map(leaf, params["embed"]),
+            "blocks": pytree.tree_map(leaf, blocks),
+            "final_norm": pytree.tree_map(leaf, params["final_norm"])}

@@ -35,6 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "batched_cg": _HERE / "batched_cg" / "csrc" / "batched_cg.cu",
     "simplex_proj": _HERE / "simplex_proj" / "csrc" / "simplex_proj.cu",
+    "flash_attention": _HERE / "flash_attention" / "csrc"
+    / "flash_attention.cu",
+    "rwkv_wkv": _HERE / "rwkv_wkv" / "csrc" / "rwkv_wkv.cu",
 }
 
 _lock = threading.Lock()
@@ -105,10 +108,11 @@ def build(*names: str, timeout: float = 900.0) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``.  The first use of any kernel
+    builds every kernel not built yet, all at once."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)[name]))
+            lib = ctypes.CDLL(str(build()[name]))
             _loaded[name] = lib
         return lib

@@ -1,0 +1,3 @@
+"""Forward flash attention: Hopper kernel, binding, op, plain version."""
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref

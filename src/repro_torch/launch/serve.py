@@ -1,15 +1,26 @@
-"""Serving launcher of the PyTorch port: the implicit-diff solve service.
+"""Serving launcher of the PyTorch port: LM decode or the implicit-diff
+solve service.
 
-Drives the solve service with two traffic waves — the second replays the
-first, so the warm-start cache hit rate and the scheduler metrics are
-exercised end to end::
+LM decode (the prompt fed through ``decode_step`` a token at a time to
+fill the cache, then greedy decode of the whole batch, as the JAX
+launcher)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
+        --smoke --batch 4 --prompt-len 16 --gen 16 [--device cpu]
+
+Parameters and prompts are drawn from ``--seed`` on the device.  The
+dense and RWKV-6 families are served; MoE, MLA and the hybrid family raise
+``NotImplementedError`` (ROADMAP A.12), encoder-only archs exit.
+
+Solve service (two traffic waves — the second replays the first, so the
+warm-start cache hit rate and the scheduler metrics are exercised end to
+end)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --solve-service \\
         --requests 64 --dim 32 --max-batch 64 [--device cpu]
 
-Same flags and defaults as ``python -m repro.launch.serve
---solve-service``, plus ``--device`` (default ``cuda``).  The LM decode
-path of the JAX launcher comes with the LM stack.
+Same flags and defaults as ``python -m repro.launch.serve``, plus
+``--device`` (default ``cuda``).
 
 The service always has a warm-start cache here, so its ``"auto"`` route
 resolves the SPD traffic to ``dense_gmres`` (a warm start may arrive) and
@@ -78,30 +89,107 @@ def serve_solves(args) -> None:
             print(f"[serve] trace: {tracer.path} ({n_spans} spans)")
 
 
+def serve_lm(args) -> dict:
+    """Batched greedy decode of random prompts; prints and returns the
+    timings and the tokens."""
+    import torch
+
+    from repro_torch import _device, configs
+    from repro_torch.models import init_decode_state, init_params
+    from repro_torch.runtime.train_loop import make_decode_step
+
+    cfg = configs.get(args.arch, smoke=args.smoke)
+    if not cfg.has_decoder:
+        raise SystemExit(f"{cfg.name} is encoder-only; nothing to decode")
+    dev = _device.resolve(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, gen, device=dev)
+    B, P, G = args.batch, args.prompt_len, args.gen
+
+    stub = cfg.embedding_frontend == "stub_embeddings"
+    if stub:      # embeddings in; every generated step feeds one fixed frame
+        prompts = torch.randn(B, P, cfg.d_model, generator=gen, device=dev)
+        frame = torch.randn(B, 1, cfg.d_model, generator=gen, device=dev)
+    else:
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                                device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    state = init_decode_state(cfg, B, P + G, device=dev)
+    step = make_decode_step(cfg)
+
+    # prefill: feed the prompt through decode steps (cache-filling)
+    sync()
+    t0 = time.perf_counter()
+    logits = None
+    for i in range(P):
+        logits, state = step(params, state, prompts[:, i:i + 1])
+    sync()
+    t_prefill = time.perf_counter() - t0
+
+    generated = []
+    t0 = time.perf_counter()
+    tok = logits[:, -1].argmax(dim=-1)[:, None]
+    for _ in range(G):
+        logits, state = step(params, state, frame if stub else tok)
+        tok = logits[:, -1].argmax(dim=-1)[:, None]
+        generated.append(tok)
+    sync()
+    t_decode = time.perf_counter() - t0
+
+    out = torch.cat(generated, dim=1).cpu()
+    tok_s = B * G / max(t_decode, 1e-9)
+    print(f"[serve] arch={cfg.name} batch={B} prompt={P} gen={G} on {dev}")
+    print(f"[serve] prefill={t_prefill*1e3:.1f}ms "
+          f"decode={t_decode*1e3:.1f}ms ({tok_s:.1f} tok/s)")
+    print(f"[serve] sample tokens: {out[0, :8].tolist()}")
+    return {"arch": cfg.name, "device": str(dev), "prefill_s": t_prefill,
+            "decode_s": t_decode, "decode_tok_s": tok_s, "tokens": out,
+            "logits": logits}
+
+
 def main(argv=None):
-    """Parse the command line and run the solve service."""
+    """Parse the command line and run the LM decode loop or the solve
+    service; returns the LM path's summary (None for the service)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None,
+                    help="LM decode mode: an arch name of "
+                         "repro_torch.configs (required unless "
+                         "--solve-service)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM: the arch's small smoke config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--solve-service", action="store_true",
-                    help="serve the implicit-diff solve service (the only "
-                         "path of this launcher so far)")
+                    help="serve the implicit-diff solve service instead of "
+                         "LM decode")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=64,
-                    help="concurrent requests per wave")
+                    help="solve-service: concurrent requests per wave")
     ap.add_argument("--dim", type=int, default=32,
-                    help="instance dimension d")
+                    help="solve-service: instance dimension d")
     ap.add_argument("--max-batch", type=int, default=64,
-                    help="bucket capacity ceiling")
+                    help="solve-service: bucket capacity ceiling")
     ap.add_argument("--cache-capacity", type=int, default=256,
-                    help="warm-start cache capacity")
+                    help="solve-service: warm-start cache capacity")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="write a JSONL span/event trace")
+                    help="solve-service: write a JSONL span/event trace")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the service (default: cuda)")
+                    help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if not args.solve_service:
-        ap.error("only --solve-service is ported; the LM decode path comes "
-                 "with the LM stack")
-    serve_solves(args)
+    if args.solve_service:
+        serve_solves(args)
+        return None
+    if args.arch is None:
+        ap.error("--arch is required unless --solve-service is given")
+    from repro_torch import configs
+    if args.arch not in configs.names():
+        ap.error(f"unknown --arch {args.arch!r}; have {configs.names()}")
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,315 @@
+"""Shared neural layers of the port's model zoo.
+
+Counterpart of ``repro/models/layers.py`` (everything but MLA, which comes
+with the MoE/MLA slice, ROADMAP A.12).  Functional style, as the JAX
+package: each layer is ``*_init(generator, cfg, ..., device) -> params``
+(a dict of tensors) plus ``apply(params, x, ...) -> y``.  Weights keep the
+JAX ``(d_in, d_out)`` layout, so ``x @ w`` needs no transpose and
+parameters cross between the packages unchanged (``repro_torch.interop``).
+
+The places where bfloat16 rounds are the reference's: ``rmsnorm`` and
+``layernorm`` compute in float32 and cast back after the scale, RoPE
+rotates in float32 and casts back, and both attention paths (``_sdpa`` for
+prefill, ``_decode_sdpa`` against a cache) take logits, softmax and the
+weighted sum in float32 and cast to q's type.
+
+Attention's inner product goes through the flash-attention op
+(``repro_torch.kernels.flash_attention``: the hand-written Hopper kernel on
+CUDA tensors) with ``use_kernel=True``, else through ``_sdpa``, which is
+that op's plain version (``kernels/flash_attention/ref.attention_ref``).
+The reference's ``_sdpa`` also takes a ``q_offset`` that no caller sets;
+the port's has none (its mask is top-left, the reference's default).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import _device
+from repro_torch.configs.base import ArchConfig
+# the reference's plain attention (top-left causal mask), shared with the
+# flash-attention op's CPU path
+from repro_torch.kernels.flash_attention.ref import NEG_INF
+from repro_torch.kernels.flash_attention.ref import attention_ref as _sdpa
+
+Params = Dict[str, Any]
+
+
+def torch_dtype(cfg: ArchConfig) -> torch.dtype:
+    """The tensor type of ``cfg.dtype`` ("bfloat16" / "float32")."""
+    return getattr(torch, cfg.dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               device) -> torch.Tensor:
+    """(d_in, d_out) standard normal × 1/√d_in, drawn in float32."""
+    w = torch.randn(d_in, d_out, generator=gen, device=device,
+                    dtype=torch.float32)
+    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+
+
+def _uniform(gen, shape, scale, dtype, device) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    return (u * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype, device=None) -> Params:
+    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    """RMS norm in float32, cast back to x's dtype after the scale."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype, device=None) -> Params:
+    return {"scale": torch.ones(d, dtype=dtype, device=device),
+            "bias": torch.zeros(d, dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """Layer norm with the population variance, in float32."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)
+            + params["bias"].to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (RoPE + Qwen2-VL M-RoPE)
+# ---------------------------------------------------------------------------
+
+def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (..., seq) int -> cos/sin of shape (..., seq, head_dim//2)."""
+    ang = positions.to(torch.float32)[..., None] * _inv_freq(
+        head_dim, theta, positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); cos/sin: (..., seq, head_dim//2)."""
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_positions(batch: int, seq: int, sections=(16, 24, 24),
+                    device=None) -> torch.Tensor:
+    """Qwen2-VL M-RoPE position ids, text-only: the temporal, height and
+    width channels share the 1-D position.  Returns (3, B, S) int64."""
+    pos = torch.arange(seq, device=device)[None, :].expand(batch, seq)
+    return torch.stack([pos, pos, pos], dim=0)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=None) -> torch.Tensor:
+    """M-RoPE: the head_dim/2 frequency slots are split into 3 sections fed
+    by the (t, h, w) position channels.  positions: (3, B, S).  Default
+    sections follow Qwen2-VL's 1:1.5:1.5 split scaled to the head_dim."""
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    if sections is None:
+        t = half // 4
+        rem = half - t
+        sections = (t, rem - rem // 2, rem // 2)
+    assert sum(sections) == half, (sections, half)
+    sec = torch.repeat_interleave(
+        torch.arange(3, device=positions.device),
+        torch.tensor(sections, device=positions.device))
+    pos_per_slot = positions.to(torch.float32)[sec]        # (half, B, S)
+    ang = pos_per_slot.movedim(0, -1) * _inv_freq(head_dim, theta,
+                                                   positions.device)
+    return apply_rope(x, torch.cos(ang), torch.sin(ang))
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward blocks
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, cfg: ArchConfig, d_ff: Optional[int] = None,
+             device=None) -> Params:
+    d, dt = cfg.d_model, torch_dtype(cfg)
+    d_ff = d_ff or cfg.d_ff
+    if cfg.mlp_activation == "silu":      # gated (SwiGLU): 3 matrices
+        return {"w_gate": dense_init(gen, d, d_ff, dt, device),
+                "w_up": dense_init(gen, d, d_ff, dt, device),
+                "w_down": dense_init(gen, d_ff, d, dt, device)}
+    return {"w_up": dense_init(gen, d, d_ff, dt, device),
+            "w_down": dense_init(gen, d_ff, d, dt, device)}
+
+
+def mlp_apply(params: Params, x: torch.Tensor, activation: str
+              ) -> torch.Tensor:
+    """SwiGLU (``silu``), GELU (tanh approximation, as ``jax.nn.gelu``) or
+    squared ReLU (``relu2``, Nemotron-4)."""
+    if activation == "silu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif activation == "gelu":
+        h = F.gelu(x @ params["w_up"], approximate="tanh")
+    elif activation == "relu2":
+        h = torch.square(F.relu(x @ params["w_up"]))
+    else:
+        raise ValueError(f"unknown activation {activation}")
+    return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def attention_init(gen, cfg: ArchConfig, device=None) -> Params:
+    d, dt = cfg.d_model, torch_dtype(cfg)
+    hd = cfg.resolved_head_dim
+    p = {"w_q": dense_init(gen, d, cfg.num_heads * hd, dt, device),
+         "w_k": dense_init(gen, d, cfg.num_kv_heads * hd, dt, device),
+         "w_v": dense_init(gen, d, cfg.num_kv_heads * hd, dt, device),
+         "w_o": dense_init(gen, cfg.num_heads * hd, d, dt, device)}
+    if cfg.qkv_bias:
+        for name, n in (("b_q", cfg.num_heads), ("b_k", cfg.num_kv_heads),
+                        ("b_v", cfg.num_kv_heads)):
+            p[name] = torch.zeros(n * hd, dtype=dt, device=device)
+    return p
+
+
+def attention_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                    positions: Optional[torch.Tensor] = None,
+                    kv_cache: Optional[Tuple] = None,
+                    cache_index: Optional[int] = None,
+                    use_kernel: bool = False):
+    """GQA attention.  Returns (out, new_kv_cache).
+
+    Prefill: kv_cache=None, full self-attention over x (the flash-attention
+    op with ``use_kernel``).  Decode: kv_cache=(k, v) of a static length;
+    the new k/v are written at ``cache_index`` (an int) **in place** into
+    the given cache tensors, which are returned as the new cache.  The
+    decode mask is a length mask only (keys < cache_index + S), as the
+    reference's, so a multi-token decode is not causal within its chunk.
+    """
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = x @ params["w_q"]
+    k = x @ params["w_k"]
+    v = x @ params["w_v"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
+
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        if cache_index is not None:
+            positions = positions + int(cache_index)
+
+    if cfg.mrope:
+        if positions.ndim == 2:       # text-only: replicate channels
+            positions = torch.stack([positions] * 3, dim=0)
+        q = apply_mrope(q, positions, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.rope_theta)
+    else:
+        cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        _scatter_cache(ck, k, cache_index)
+        _scatter_cache(cv, v, cache_index)
+        out = _decode_sdpa(q, ck, cv, int(cache_index) + S)
+        new_cache = (ck, cv)
+    else:
+        if use_kernel:
+            from repro_torch.kernels.flash_attention import ops as fa_ops
+            out = fa_ops.flash_attention(q, k, v, causal=cfg.causal)
+        else:
+            out = _sdpa(q, k, v, causal=cfg.causal)
+        new_cache = None
+
+    out = out.reshape(B, S, H * hd) @ params["w_o"]
+    return out, new_cache
+
+
+def _scatter_cache(cache: torch.Tensor, new: torch.Tensor,
+                   index) -> torch.Tensor:
+    """cache: (B, Smax, Hkv, D); new: (B, s, Hkv, D) written at ``index``
+    in place.  The start is clamped to [0, Smax − s], as
+    ``lax.dynamic_update_slice`` clamps it.  Returns ``cache``."""
+    s, smax = new.shape[1], cache.shape[1]
+    start = min(max(int(index), 0), smax - s)
+    cache[:, start:start + s] = new.to(cache.dtype)
+    return cache
+
+
+def _decode_sdpa(q, k_cache, v_cache, valid_len: int):
+    """Decode attention: q (B, Sq, H, D) against the padded cache, keys at
+    positions < ``valid_len`` (a length mask only), float32 inside."""
+    B, Sq, H, D = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = (q.to(torch.float32) / math.sqrt(D)).reshape(B, Sq, Hkv, H // Hkv,
+                                                       D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                          k_cache.to(torch.float32))
+    mask = torch.arange(Smax, device=q.device) < valid_len
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs,
+                       v_cache.to(torch.float32))
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None):
+    """Zero (k, v) caches of shape (batch, max_len, Hkv, head_dim) on
+    ``device`` (default ``cuda``)."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dev = _device.resolve(device)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+
+def embedding_init(gen, cfg: ArchConfig, device=None) -> Params:
+    dt = torch_dtype(cfg)
+    tok = torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
+                      device=device, dtype=torch.float32)
+    p = {"tok": (tok * 0.02).to(dt)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
+                                  device)
+    return p
+
+
+def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["tok"][tokens.long()]
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    if "unembed" in params:
+        return x @ params["unembed"]
+    return x @ params["tok"].T.to(x.dtype)

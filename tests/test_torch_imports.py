@@ -39,10 +39,34 @@ def test_port_has_modules():
                    "repro_torch/core/bilevel.py",
                    "repro_torch/kernels/batched_cg/ops.py",
                    "repro_torch/kernels/simplex_proj/ops.py",
+                   "repro_torch/kernels/flash_attention/ops.py",
+                   "repro_torch/kernels/flash_attention/kernel.py",
+                   "repro_torch/kernels/flash_attention/ref.py",
+                   "repro_torch/kernels/rwkv_wkv/ops.py",
+                   "repro_torch/kernels/rwkv_wkv/kernel.py",
+                   "repro_torch/kernels/rwkv_wkv/ref.py",
+                   "repro_torch/configs/__init__.py",
+                   "repro_torch/configs/base.py",
+                   "repro_torch/configs/qwen1_5_4b.py",
+                   "repro_torch/configs/rwkv6_3b.py",
+                   "repro_torch/models/__init__.py",
+                   "repro_torch/models/layers.py",
+                   "repro_torch/models/rwkv.py",
+                   "repro_torch/models/model.py",
+                   "repro_torch/interop.py",
                    "repro_torch/runtime/solve_service.py",
+                   "repro_torch/runtime/serving.py",
+                   "repro_torch/runtime/train_loop.py",
                    "repro_torch/launch/serve.py"):
         assert module in names
     assert (REPO / "chip_smoke.py").exists()
+    for name in ("flash_attention", "rwkv_wkv"):
+        assert (REPO / "src" / "repro_torch" / "kernels" / name / "csrc"
+                / f"{name}.cu").exists()
+    configs = {p.name for p in (REPO / "src" / "repro" / "configs")
+               .glob("*.py")}
+    assert configs == {p.name for p in (REPO / "src" / "repro_torch" /
+                                        "configs").glob("*.py")}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(REPO)
