@@ -65,13 +65,20 @@ prints one line:
      sort-based projection (information only: ``library_ms`` is null, no
      single PyTorch call projects onto the simplex), and the SVM phase's
      seconds per inner iteration, per backward solve and per outer step;
- 12. flash-attention kernel against plain: the op on CUDA tensors against
-     ``attention_ref`` (top-left causal) at (B, S, H, Hkv, D) ∈
-     {(2, 128, 4, 4, 64) causal and not, (2, 200, 8, 2, 128) GQA with a
-     ragged tile, (4, 2048, 20, 20, 128) the prefill shape}, float32 and
-     bfloat16: max |Δ| ≤ 1e-4·max|ref| in float32 (sums in another
-     order), |Δ| ≤ 2⁻⁷|ref| + 1e-4·max|ref| in bfloat16 (one rounding of
-     the output, one bf16 unit at most);
+ 12. flash-attention kernels against plain: the op on CUDA tensors against
+     ``attention_ref`` (top-left causal) at (B, Sq, Sk, H, Hkv, D) ∈
+     {(2, 128, 128, 4, 4, 64) causal and not, (2, 200, 200, 8, 2, 128) GQA
+     with a ragged tile, (4, 2048, 2048, 20, 20, 128) the prefill shape},
+     float32 and bfloat16, and in bfloat16 (1, 77, 77, 4, 1, 80) MQA with a
+     padded head, (1, 64, 130, 2, 2, 256), (3, 33, 17, 6, 3, 64) and
+     (2, 100, 100, 4, 2, 32): max |Δ| ≤ 1e-4·max|ref| in float32 (sums in
+     another order), |Δ| ≤ 2⁻⁷|ref| + 1e-4·max|ref| in bfloat16 (one
+     rounding of the output, one bf16 unit at most); every bfloat16 call
+     with D ≥ 64 on the tensor-core route ("tc", ``flash_attention_tc.cu``),
+     and the D = 32 call and every float32 call on the CUDA-core route
+     ("simt", ``flash_attention.cu``), read from the op's per-route launch
+     counts; the bfloat16 calls of the first four shapes also on the
+     CUDA-core kernel (``route_name="simt"``), against the same limit;
  13. WKV kernel against plain: the op against ``wkv_scan_ref`` at (B, T, H)
      ∈ {(1, 1, 1), (2, 100, 3), (4, 2048, 40)}, head size 64, float32 and
      bfloat16 r/k/v with float32 w, with the same limits, and a state
@@ -80,40 +87,49 @@ prints one line:
      vocab 151,936), parameters drawn on the card from ``--seed``, tokens
      (B, S) = (4, 2048).  In float32 (the algorithm at full size):
      ``make_prefill_step(use_kernel=True)`` with exactly 40 flash-attention
-     launches, its logits against ``use_kernel=False`` within ‖Δ‖/‖ref‖ ≤
-     1e-3; token-by-token ``decode_step`` over (2, 64) against the prefill
-     logits within a limit set per model from its readings (1e-5 here, 5e-3
-     for ``rwkv6-3b``), and the same at full width and 1 and 4 layers
-     within 1e-5 for both (a fault of the carried state shows at any
-     depth; rounding grows with it; see PERF.md).  In bfloat16, the served
-     type and the main path: exactly 40 launches, the logits against
-     ``use_kernel=False`` within a fixed limit per model (5e-2 here, 8e-2
-     for ``rwkv6-3b``, set between the floor — the same prefill with the
-     op's plain version in the kernel's place — and the controls; see
-     PERF.md); in both types a prefill with a zeroed attention output and
-     one with its S and H axes swapped must land above that limit;
-     decode against prefill reported; the LM launcher's ``main`` at batch
-     4, prompt 16, gen 16; ``ContinuousBatchingEngine(num_slots=8)``
+     launches, all on the simt route, its logits against
+     ``use_kernel=False`` within ‖Δ‖/‖ref‖ ≤ 1e-3; token-by-token
+     ``decode_step`` over (2, 64) against the prefill logits within a
+     limit set per model from its readings (1e-5 here, 5e-3 for
+     ``rwkv6-3b``), and the same at full width and 1 and 4 layers within
+     1e-5 for both (a fault of the carried state shows at any depth;
+     rounding grows with it; see PERF.md).  In bfloat16, the served type
+     and the main path: exactly 40 launches, all on the tc route, the
+     logits against ``use_kernel=False`` within a fixed limit per model
+     (5e-2 here, 8e-2 for ``rwkv6-3b``, set between the floor — the same
+     prefill with the op's plain version in the kernel's place — and the
+     controls; see PERF.md); in both types a prefill with a zeroed attention
+     output and one with its S and H axes swapped must land above that
+     limit; decode against prefill reported; the LM launcher's ``main`` at
+     batch 4, prompt 16, gen 16; ``ContinuousBatchingEngine(num_slots=8)``
      serving 16 requests (prompts of 8-32 tokens, 16 new tokens each), all
-     complete, and a request served alone equal token for token to the
-     same request admitted with 7 others;
+     complete, and a request served alone equal token for token to the same
+     request admitted with 7 others;
  15. ``rwkv6-3b`` at its full config (32 layers, d 2560, 40 heads of 64):
      the same as 14 with the WKV kernel, exactly 32 launches per prefill
      step, the controls a zeroed WKV output and one with T and H swapped;
- 16. times, with the card's name and power limit: the flash-attention
-     kernel at the prefill shape (bfloat16, causal) by CUDA events, its
-     bound, the plain version and ``F.scaled_dot_product_attention`` on
-     the same tensors (yardstick only — the port never calls it); the WKV
-     kernel at (4, 2048, 40, 64) bfloat16 r/k/v, its bound, the plain scan
-     and ``wkv_chunked`` (no single PyTorch call computes it); the prefill
-     step's ms and tokens/s with and without the kernels and the decode
-     tokens/s of the launcher and the engine, for both models.
+ 16. times, with the card's name and power limit: at the prefill shape
+     (bfloat16, causal), by CUDA events in one call and in turns (tc,
+     simt, SDPA, tc), the tensor-core flash-attention kernel, the
+     CUDA-core kernel's bf16 instantiation and
+     ``F.scaled_dot_product_attention`` on the same tensors (yardstick
+     only — the port never calls it), each with its TFLOP/s; its bound and
+     the plain version; the WKV kernel at (4, 2048, 40, 64) bfloat16
+     r/k/v, its bound, the plain scan and ``wkv_chunked`` (no single
+     PyTorch call computes it); the prefill step's ms and tokens/s with
+     and without the kernels, one kernel prefill step under
+     ``torch.profiler`` (device time of the port's kernels, of the matrix
+     products and of the rest; the device busy share of the step), and
+     the decode tokens/s of the launcher and the engine, for both models.
 
-Kernel launches are counted by each kernel's ``ops.LAUNCHES``, set to 0
-just before each main-path phase (4-7 for batched_cg, 10 for simplex_proj,
-each kernel prefill of 14 for flash_attention and of 15 for rwkv_wkv; the
-JSON line reports the bfloat16 one) and read just after.  The line before the last is a JSON object describing
-each kernel; the last line is ``{"ok": true, "device": {...}}``.  Without a
+Kernel launches are counted by each kernel's ``ops.LAUNCHES`` (and, for
+flash attention, ``ops.LAUNCHES_BY_ROUTE``), set to 0 just before each
+main-path phase (4-7 for batched_cg, 10 for simplex_proj, each kernel
+prefill of 14 for flash_attention and of 15 for rwkv_wkv; the JSON line
+reports the bfloat16 one, for flash attention its tc launches, and adds
+the CUDA-core kernel's time as ``previous_ms``) and read just after.  The
+line before the last is a JSON object describing each kernel; the last
+line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repo's ``src/`` beside it, the script exits
 non-zero and prints no result.
 """
@@ -122,6 +138,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -151,14 +168,28 @@ SVM_LINSOLVE = dict(linsolve_tol=1e-6, linsolve_maxiter=800)
 SVM_MAXITER = 6000
 SVM_GRAD_RTOL = 1e-2               # float32 kernel vs float64 sort-based
 
-FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+# the tensor-core kernel (the bfloat16 route the models serve) and the
+# CUDA-core kernel (float32, and the bf16 shapes the tc route does not take)
+FA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_tc.cu")
+FA_SIMT_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu")
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:27"
 WKV_SOURCE = "src/repro_torch/kernels/rwkv_wkv/csrc/rwkv_wkv.cu"
 WKV_REPLACES = "src/repro/kernels/rwkv_wkv/kernel.py:21"
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
-# phase 12: (B, S, H, Hkv, D, causal); the last is qwen1.5-4b's prefill
-FA_SHAPES = [(2, 128, 4, 4, 64, True), (2, 128, 4, 4, 64, False),
-             (2, 200, 8, 2, 128, True), (4, 2048, 20, 20, 128, True)]
+# phase 12: (B, Sq, Sk, H, Hkv, D, causal), float32 and bfloat16; the last
+# is qwen1.5-4b's prefill
+FA_SHAPES = [(2, 128, 128, 4, 4, 64, True), (2, 128, 128, 4, 4, 64, False),
+             (2, 200, 200, 8, 2, 128, True),
+             (4, 2048, 2048, 20, 20, 128, True)]
+# and in bfloat16 only: a ragged D = 80 head with MQA, D = 256 with Sq < Sk,
+# and Sq > Sk with GQA, so that the tc route meets them on every run
+FA_BF16_SHAPES = [(1, 77, 77, 4, 1, 80, True), (1, 64, 130, 2, 2, 256, True),
+                  (3, 33, 17, 6, 3, 64, True),
+                  # a head narrower than one 64-column panel: the op sends
+                  # it to the CUDA-core kernel
+                  (2, 100, 100, 4, 2, 32, True)]
 WKV_SHAPES = [(1, 1, 1), (2, 100, 3), (4, 2048, 40)]   # (B, T, H), N = 64
 LM_PREFILL = (4, 2048)             # (B, S) of the prefill step
 LM_DECODE = (2, 64)                # (B, S) of decode against prefill
@@ -208,6 +239,43 @@ def ridge_batch(gen, B, d, m, dtype, device, theta_range=(1e-2, 1.0)):
         d, device=device, dtype=dtype)
     b = torch.randn(B, d, generator=gen, device=device, dtype=dtype)
     return A, b, X, theta
+
+
+def ptxas_summary(log: str) -> str:
+    """Per kernel of a ``-Xptxas -v`` log: registers, spill stores / loads
+    in bytes, and whether ptxas serialized its wgmma.  Names are demangled
+    by the CUDA toolkit's ``cu++filt`` (``-p``: without parameters)."""
+    from repro_torch.kernels import _build
+    rows, name, serialized = [], None, set()
+    for line in log.splitlines():
+        m = re.search(r"serialized due to (.+?) for the function '(\S+)'",
+                      line)
+        if m:
+            serialized.add(m.group(2))
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, f"{m.group(1)} registers, {spill}"))
+            name = None
+    names = [n for n, _ in rows]
+    try:
+        shown = subprocess.run(
+            [str(Path(_build.nvcc()).with_name("cu++filt")), "-p", *names],
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except OSError:                 # a toolkit without cu++filt
+        shown = []
+    if len(shown) != len(names):
+        shown = names
+    return "; ".join(
+        short.replace("void ", "", 1).replace("(anonymous namespace)::", "")
+        + f" {regs}" + (", wgmma serialized" if n in serialized else "")
+        for (n, regs), short in zip(rows, shown))
 
 
 def sync(device) -> None:
@@ -695,28 +763,45 @@ def check_close(got, want, dtype, what):
     return float(err.max())
 
 
-def phase_flash_vs_plain(device, gen, shapes):
-    """Flash-attention kernel (via the op) against the plain version."""
+def phase_flash_vs_plain(device, gen, shapes, bf16_shapes):
+    """Flash-attention kernels (via the op) against the plain version; the
+    route each call took, read from the op's per-route launch counts.  Each
+    bfloat16 case of ``shapes`` runs once more on the CUDA-core kernel
+    (``route_name="simt"``, keyed "bfloat16 on simt"), so that its bf16
+    instantiation is held to the same limit as the route the op chose."""
     import torch
-    from repro_torch.kernels.flash_attention import ops, ref
-    worst, err_main = {}, None
-    for B, S, H, Hkv, D, causal in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            q = torch.randn(B, S, H, D, generator=gen, device=device)
-            k = torch.randn(B, S, Hkv, D, generator=gen, device=device)
-            v = torch.randn(B, S, Hkv, D, generator=gen, device=device)
-            q, k, v = (a.to(dtype) for a in (q, k, v))
-            got = ops.flash_attention(q, k, v, causal=causal)
-            sync(device)
-            want = ref.attention_ref(q, k, v, causal=causal)
-            name = str(dtype).replace("torch.", "")
-            key = (B, S, H, Hkv, D, "causal" if causal else "full", name)
-            worst[key] = check_close(got, want, dtype,
-                                     f"flash_attention vs plain at {key}")
-            if (B, S, H, D, name) == (4, 2048, 20, 128, "bfloat16"):
-                err_main = worst[key]
-            del q, k, v, got, want
-    return worst, err_main
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    worst, routes, err_main = {}, {}, None
+    cases = [(shp, dt) for shp in shapes
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(shp, torch.bfloat16) for shp in bf16_shapes]
+    for (B, Sq, Sk, H, Hkv, D, causal), dtype in cases:
+        q = torch.randn(B, Sq, H, D, generator=gen, device=device)
+        k = torch.randn(B, Sk, Hkv, D, generator=gen, device=device)
+        v = torch.randn(B, Sk, Hkv, D, generator=gen, device=device)
+        q, k, v = (a.to(dtype) for a in (q, k, v))
+        before = dict(ops.LAUNCHES_BY_ROUTE)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        sync(device)
+        took = [r for r, n in ops.LAUNCHES_BY_ROUTE.items()
+                if n != before[r]]
+        want = ref.attention_ref(q, k, v, causal=causal)
+        name = str(dtype).replace("torch.", "")
+        key = (B, Sq, Sk, H, Hkv, D, "causal" if causal else "full", name)
+        routes[key] = took[0] if len(took) == 1 else str(took)
+        worst[key] = check_close(got, want, dtype,
+                                 f"flash_attention vs plain at {key}")
+        if dtype == torch.bfloat16 and (B, Sq, Sk, H, Hkv, D, causal) \
+                in shapes:
+            simt = kernel.launch(q, k, v, causal, route_name="simt")
+            skey = key[:-1] + ("bfloat16 on simt",)
+            worst[skey] = check_close(simt, want, dtype,
+                                      f"flash_attention vs plain at {skey}")
+            del simt
+        if (B, Sq, H, D, name) == (4, 2048, 20, 128, "bfloat16"):
+            err_main = worst[key]
+        del q, k, v, got, want
+    return worst, routes, err_main
 
 
 def wkv_inputs(device, gen, B, T, H, dtype, with_state=False):
@@ -787,14 +872,20 @@ def lm_prefill_checks(cfg, params, tokens, ops, op_name, replacements):
     prefill with ``ops.<op_name>`` replaced: ``replacements`` maps a name
     to a function of the real op that returns the replacement.  Each
     replacement's logits are measured against the plain prefill and
-    against the kernel prefill."""
+    against the kernel prefill.  Where the op counts its launches by route
+    (``ops.LAUNCHES_BY_ROUTE``), those counts are set to 0 and read with
+    ``ops.LAUNCHES``."""
     import torch
     from repro_torch.runtime import make_prefill_step
     kernel_step = make_prefill_step(cfg, use_kernel=True)
+    by_route = getattr(ops, "LAUNCHES_BY_ROUTE", {})
     ops.LAUNCHES = 0
+    for name in by_route:
+        by_route[name] = 0
     logits = kernel_step(params, tokens)
     sync(tokens.device)
     launches = ops.LAUNCHES
+    routes = dict(by_route)
     want = make_prefill_step(cfg, use_kernel=False)(params, tokens)
     err = logits_error(logits, want)
     finite = bool(torch.isfinite(logits).all())
@@ -811,8 +902,8 @@ def lm_prefill_checks(cfg, params, tokens, ops, op_name, replacements):
                         logits_error(got, logits)[0])
         del got
     del logits, want
-    return dict(launches=launches, err=err, others=others, finite=finite,
-                shape_ok=shape_ok)
+    return dict(launches=launches, routes=routes, err=err, others=others,
+                finite=finite, shape_ok=shape_ok)
 
 
 def lm_decode_vs_prefill(cfg, params, tokens):
@@ -895,6 +986,62 @@ def prefill_time(cfg, params, tokens, use_kernel, reps=3):
     return sorted(times)[len(times) // 2]
 
 
+# kernel-name fragments of the prefill's matrix products (cuBLAS / CUTLASS)
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+
+
+def prefill_profile(cfg, params, tokens):
+    """One kernel prefill step under ``torch.profiler``: the device time of
+    the port's kernels (by name), of the matrix products and of everything
+    else, the device busy share of the step's host-clock time, and the
+    largest other kernels.  None when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import make_prefill_step
+    step = make_prefill_step(cfg, use_kernel=True)
+    step(params, tokens)
+    sync(tokens.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, tokens)
+        sync(tokens.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kind, others = {"port kernels": 0.0, "matrix products": 0.0,
+                       "other": 0.0}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:     # host-side ops and calls
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        name = ev.key
+        if "fa_forward" in name or "wkv6_forward" in name:
+            by_kind["port kernels"] += us / 1e3
+            others[name] = others.get(name, 0.0) + us / 1e3
+        elif any(g in name.lower() for g in GEMM_NAMES):
+            by_kind["matrix products"] += us / 1e3
+        else:
+            by_kind["other"] += us / 1e3
+            others[name] = others.get(name, 0.0) + us / 1e3
+    busy = sum(by_kind.values())
+    if busy == 0:
+        return None
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:4]
+    return dict(wall_ms=wall_ms, busy_ms=busy, by_kind=by_kind, top=top)
+
+
+def say_profile(prof):
+    if prof is None:
+        return "device time not measured (the profiler saw none)"
+    share = prof["busy_ms"] / prof["wall_ms"] * 100
+    return (f"profiled step {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['busy_ms']:.2f} ms ({share:.1f} %): " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in prof["by_kind"].items())
+            + "; largest: " + ", ".join(
+                f"{k[:60]} {v:.2f} ms" for k, v in prof["top"]))
+
+
 def free(device):
     if device.type == "cuda":
         import torch
@@ -948,7 +1095,8 @@ def phase_lm(device, gen, arch, seed, ops, op_name, plain_op):
     bf16["dec"] = lm_decode_vs_prefill(cfg, params, tokens[:Bd, :Sd])
     engine = lm_engine(cfg, params, gen, device)
     times = dict(kernel_s=prefill_time(cfg, params, tokens, True),
-                 plain_s=prefill_time(cfg, params, tokens, False))
+                 plain_s=prefill_time(cfg, params, tokens, False),
+                 profile=prefill_profile(cfg, params, tokens))
     del params, tokens
     free(device)
     launcher = lm_launcher(arch, seed, device)
@@ -958,14 +1106,21 @@ def phase_lm(device, gen, arch, seed, ops, op_name, plain_op):
                 bf16=bf16, engine=engine, launcher=launcher, **times)
 
 
-def check_lm(res, name, want_launches, tag):
-    """The hard checks of phases 14 and 15."""
+def check_lm(res, name, want_launches, tag, want_routes=None):
+    """The hard checks of phases 14 and 15.  ``want_routes`` maps a dtype
+    name to the one route all of that prefill's launches must take."""
     f32, bf16, arch = res["f32"], res["bf16"], res["cfg"].name
     limit = LM_RTOL[arch]
     for kind, r in (("float32", f32), ("bfloat16", bf16)):
         check(r["launches"] == want_launches,
               f"phase {tag}: {r['launches']} {name} launches in one "
               f"{kind} prefill step, expected {want_launches}")
+        if want_routes:
+            want = {route: want_launches if route == want_routes[kind] else 0
+                    for route in r["routes"]}
+            check(r["routes"] == want, f"phase {tag}: {name} launches by "
+                  f"route in one {kind} prefill step {r['routes']}, "
+                  f"expected {want}")
         check(r["finite"] and r["shape_ok"], f"phase {tag}: {kind} prefill "
               "logits not finite or of the wrong shape")
         for control in ("zeroed output", "swapped axes"):
@@ -1014,7 +1169,8 @@ def say_lm(res, tag, name):
         f"vocab={cfg.vocab_size}, {res['n_params']:,} parameters, bfloat16 "
         f"drawn in {res['init_s']:.2f} s), prefill {LM_PREFILL}, "
         f"‖Δ‖/‖ref‖ of logits | float32: {name} launches="
-        f"{f32['launches']}, kernel vs plain {f32['err'][0]:.3e} (max|Δ| "
+        f"{f32['launches']} {f32['routes'] or ''}, kernel vs plain "
+        f"{f32['err'][0]:.3e} (max|Δ| "
         f"{f32['err'][1]:.3e}, limit {LM_F32_RTOL}), controls " + ", ".join(
             f"{k} {v[0]:.3e}" for k, v in f32["others"].items())
         + f" (must exceed {limit}); decode vs prefill {LM_DECODE} "
@@ -1023,7 +1179,8 @@ def say_lm(res, tag, name):
             f"{depth} layers {say_decode(d)}"
             for depth, d in f32["dec_depth"].items())
         + f", limit {LM_DECODE_SHALLOW_RTOL}"
-        f" | bfloat16: launches={bf16['launches']}, kernel vs plain "
+        f" | bfloat16: launches={bf16['launches']} {bf16['routes'] or ''}, "
+        f"kernel vs plain "
         f"{bf16['err'][0]:.3e} (max|Δ| {bf16['err'][1]:.3e}, limit {limit})"
         f"; the op's plain version in the kernel's place vs plain "
         f"{bf16['others']['plain op'][0]:.3e} and vs the kernel prefill "
@@ -1040,28 +1197,38 @@ def say_lm(res, tag, name):
 
 
 def flash_times(device, gen):
-    """Flash-attention kernel, plain and SDPA at the prefill shape
-    (bfloat16, causal), and the bound."""
+    """At the prefill shape (bfloat16, causal), by CUDA events in one call
+    and in turns (tc, simt, SDPA, tc): the tensor-core kernel, the CUDA-core
+    kernel's bf16 instantiation and ``F.scaled_dot_product_attention``
+    (yardstick only); then the plain version, and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ref
     B, S, H, D = 4, 2048, 20, 128
     q, k, v = (torch.randn(B, S, H, D, generator=gen, device=device)
                .to(torch.bfloat16) for _ in range(3))
-    ms = cuda_time_ms(lambda: kernel.launch(q, k, v, True), reps=10)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    tc = [cuda_time_ms(lambda: kernel.launch(q, k, v, True, "tc"), reps=20)]
+    simt_ms = cuda_time_ms(lambda: kernel.launch(q, k, v, True, "simt"),
+                           reps=5)
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=20)
+    tc.append(cuda_time_ms(lambda: kernel.launch(q, k, v, True, "tc"),
+                           reps=20))
     plain_ms = cuda_time_ms(
         lambda: ref.attention_ref(q, k, v, True), reps=3)
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), reps=10)
     flops = 2 * 2 * B * H * D * (S * (S + 1) // 2)   # QKᵀ and PV, causal
     nbytes = 2 * 4 * B * S * H * D                   # q, k, v read, o written
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / BF16_FLOPS * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_bytes, t_flops),
+    ms = sum(tc) / len(tc)
+    return dict(ms=ms, tc_ms=tc, simt_ms=simt_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(t_bytes, t_flops),
                 bound_by="bytes" if t_bytes >= t_flops else "operations",
-                t_bytes=t_bytes, t_flops=t_flops, gflop=flops / 1e9)
+                t_bytes=t_bytes, t_flops=t_flops, gflop=flops / 1e9,
+                tflops={name: flops / t / 1e9 for name, t in (
+                    ("tc", ms), ("simt", simt_ms), ("sdpa", library_ms),
+                    ("plain", plain_ms))})
 
 
 def wkv_times(device, gen):
@@ -1146,11 +1313,10 @@ def main(argv=None) -> None:
     built_s = time.perf_counter() - t0
     for kname, source in (("batched_cg", KERNEL_SOURCE),
                           ("simplex_proj", SIMPLEX_SOURCE),
-                          ("flash_attention", FA_SOURCE),
+                          ("flash_attention",
+                           f"{FA_SOURCE} and {FA_SIMT_SOURCE}"),
                           ("rwkv_wkv", WKV_SOURCE)):
-        ptx = " | ".join(line.split("ptxas info    : ")[-1].strip()
-                         for line in _build.build_log(kname).splitlines()
-                         if "registers" in line or "spill" in line)
+        ptx = ptxas_summary(_build.build_log(kname))
         say("2 build", f"{kname} from {source} (all four in {built_s:.1f} s,"
             f" 0 if cached): {ptx}")
 
@@ -1286,9 +1452,15 @@ def main(argv=None) -> None:
         + f"; float64 sort-based step {s10['s64']:.3f} s")
 
     # 12. flash-attention kernel against plain
-    worst12, err12 = phase_flash_vs_plain(device, gen, FA_SHAPES)
-    say("12 flash vs plain", "max |Δ| per (B, S, H, Hkv, D, mask, dtype): "
-        + ", ".join(f"{k}={e:.2e}" for k, e in worst12.items()))
+    worst12, routes12, err12 = phase_flash_vs_plain(device, gen, FA_SHAPES,
+                                                    FA_BF16_SHAPES)
+    for key, took in routes12.items():
+        want = "tc" if key[-1] == "bfloat16" and key[5] >= 64 else "simt"
+        check(took == want, f"phase 12: flash_attention at {key} took the "
+              f"{took} route, expected {want}")
+    say("12 flash vs plain", "max |Δ| and route per (B, Sq, Sk, H, Hkv, D, "
+        "mask, dtype): " + ", ".join(f"{k}={e:.2e} {routes12.get(k, '')}"
+                                     for k, e in worst12.items()))
 
     # 13. WKV kernel against plain
     worst13, err13 = phase_wkv_vs_plain(device, gen, WKV_SHAPES)
@@ -1304,7 +1476,8 @@ def main(argv=None) -> None:
     from repro_torch.kernels.rwkv_wkv.ref import wkv_scan_ref
     s14 = phase_lm(device, gen, "qwen1.5-4b", args.seed, fa_ops,
                    "flash_attention", attention_ref)
-    check_lm(s14, "flash_attention", 40, 14)
+    check_lm(s14, "flash_attention", 40, 14,
+             {"bfloat16": "tc", "float32": "simt"})
     say_lm(s14, "14 qwen1.5-4b", "flash_attention")
     s15 = phase_lm(device, gen, "rwkv6-3b", args.seed, wkv_ops, "wkv",
                    wkv_scan_ref)
@@ -1315,11 +1488,19 @@ def main(argv=None) -> None:
     t16 = flash_times(device, gen)
     w16 = wkv_times(device, gen)
     tok = LM_PREFILL[0] * LM_PREFILL[1]
+    tf = t16["tflops"]
     say("16 times", f"[{card}] flash_attention (4, 2048, 20, 128) bfloat16 "
-        f"causal: kernel {t16['ms']:.4f} ms, bound {t16['bound_ms']:.4f} ms "
+        f"causal, in turns: tc kernel {t16['tc_ms'][0]:.4f} / "
+        f"{t16['tc_ms'][1]:.4f} ms ({tf['tc']:.1f} TFLOP/s, "
+        f"{t16['bound_ms'] / t16['ms'] * 100:.1f} % of the bound), simt "
+        f"kernel {t16['simt_ms']:.4f} ms ({tf['simt']:.1f} TFLOP/s; tc "
+        f"{t16['simt_ms'] / t16['ms']:.2f}x faster), "
+        f"F.scaled_dot_product_attention {t16['library_ms']:.4f} ms "
+        f"({tf['sdpa']:.1f} TFLOP/s); bound {t16['bound_ms']:.4f} ms "
         f"({t16['gflop']:.1f} GFLOP: operations {t16['t_flops']:.4f} ms, "
-        f"bytes {t16['t_bytes']:.4f} ms), plain {t16['plain_ms']:.4f} ms, "
-        f"F.scaled_dot_product_attention {t16['library_ms']:.4f} ms | "
+        f"bytes {t16['t_bytes']:.4f} ms), plain {t16['plain_ms']:.4f} ms "
+        f"({tf['plain']:.1f} TFLOP/s); qwen1.5-4b prefill with / without "
+        f"the kernel {s14['kernel_s'] / s14['plain_s']:.3f} | "
         f"rwkv_wkv (4, 2048, 40, 64) bfloat16 r/k/v: kernel "
         f"{w16['ms']:.4f} ms, bound {w16['bound_ms']:.4f} ms ("
         f"{w16['gflop']:.2f} GFLOP at 5N² a step: operations "
@@ -1329,7 +1510,8 @@ def main(argv=None) -> None:
             f"{r['cfg'].name} prefill {LM_PREFILL}: kernel "
             f"{r['kernel_s'] * 1e3:.2f} ms ({tok / r['kernel_s']:.0f} "
             f"tok/s), plain {r['plain_s'] * 1e3:.2f} ms "
-            f"({tok / r['plain_s']:.0f} tok/s); launcher decode batch 4: "
+            f"({tok / r['plain_s']:.0f} tok/s); {say_profile(r['profile'])}"
+            f"; launcher decode batch 4: "
             f"{r['launcher']['decode_tok_s']:.1f} tok/s (its token-by-token "
             f"prompt prefill {r['launcher']['prefill_s'] * 1e3:.1f} ms); "
             f"engine {r['engine']['tokens'] / r['engine']['wall']:.1f} tok/s"
@@ -1350,10 +1532,11 @@ def main(argv=None) -> None:
         "bound_ms": t11["bound_ms"], "bound_by": t11["bound_by"],
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
-        "replaces": FA_REPLACES, "launches": s14["bf16"]["launches"],
+        "replaces": FA_REPLACES,
+        "launches": s14["bf16"]["routes"]["tc"],
         "max_abs_err": err12, "ms": t16["ms"], "plain_ms": t16["plain_ms"],
         "bound_ms": t16["bound_ms"], "bound_by": t16["bound_by"],
-        "library_ms": t16["library_ms"]}, {
+        "library_ms": t16["library_ms"], "previous_ms": t16["simt_ms"]}, {
         "name": "rwkv_wkv", "route": "cuda", "source": WKV_SOURCE,
         "replaces": WKV_REPLACES, "launches": s15["bf16"]["launches"],
         "max_abs_err": err13, "ms": w16["ms"], "plain_ms": w16["plain_ms"],

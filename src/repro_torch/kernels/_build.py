@@ -1,18 +1,23 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each kernel is one ``.cu`` source with a plain ``extern "C"`` interface,
-compiled for Hopper into a shared library under ``build/kernels/`` at the
-root of the checkout (listed in ``.gitignore``) at first use::
+Each kernel is a library with a plain ``extern "C"`` interface, built for
+Hopper from the ``.cu`` sources listed in :data:`KERNELS` (they may include
+headers of the same ``csrc/`` directory) into a shared library under
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``)
+at first use::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>_<hash>.so <src>
+         -Xcompiler -fPIC -Xptxas -v \\
+         -o build/kernels/lib<name>_<hash>.so <sources>
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  ``build()``
-starts one ``nvcc`` per missing library, all at once, and waits for every
-one of them; the compiler's output (``-Xptxas -v``: registers, shared
-memory, spills) is kept beside each library (:func:`build_log`).  A failed
-build raises.  Nothing here runs at import time.
+The library name carries a hash of every file under the kernel's
+``csrc/`` directory, its sources and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
+``build()`` starts one ``nvcc`` per missing library, all at once, and
+waits for every one of them; the compiler's output (``-Xptxas -v``:
+registers, shared memory, spills) is kept beside each library
+(:func:`build_log`).  A failed build raises.  Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 _HERE = Path(__file__).resolve().parent
 REPO_ROOT = _HERE.parents[2]
@@ -32,12 +37,21 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-SOURCES = {
-    "batched_cg": _HERE / "batched_cg" / "csrc" / "batched_cg.cu",
-    "simplex_proj": _HERE / "simplex_proj" / "csrc" / "simplex_proj.cu",
-    "flash_attention": _HERE / "flash_attention" / "csrc"
-    / "flash_attention.cu",
-    "rwkv_wkv": _HERE / "rwkv_wkv" / "csrc" / "rwkv_wkv.cu",
+
+class Kernel(NamedTuple):
+    """One library: its ``csrc/`` directory and the ``.cu`` files in it
+    that are compiled."""
+    csrc: Path
+    sources: Tuple[str, ...]
+
+
+KERNELS = {
+    "batched_cg": Kernel(_HERE / "batched_cg" / "csrc", ("batched_cg.cu",)),
+    "simplex_proj": Kernel(_HERE / "simplex_proj" / "csrc",
+                           ("simplex_proj.cu",)),
+    "flash_attention": Kernel(_HERE / "flash_attention" / "csrc",
+                              ("flash_attention.cu", "flash_attention_tc.cu")),
+    "rwkv_wkv": Kernel(_HERE / "rwkv_wkv" / "csrc", ("rwkv_wkv.cu",)),
 }
 
 _lock = threading.Lock()
@@ -61,11 +75,16 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the built library for kernel ``name`` lives (hash-named)."""
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where the built library for kernel ``name`` lives, named by a hash
+    of every file under its ``csrc/`` (path and bytes), its sources and
+    the flags."""
+    kern = KERNELS[name]
+    h = hashlib.sha256()
+    for f in sorted(p for p in kern.csrc.rglob("*") if p.is_file()):
+        h.update(f.relative_to(kern.csrc).as_posix().encode() + b"\0")
+        h.update(f.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS + kern.sources).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:
@@ -76,7 +95,7 @@ def build_log(name: str) -> str:
 def build(*names: str, timeout: float = 900.0) -> Dict[str, Path]:
     """Compile the named kernels (all of them when none are named) that
     are not built yet, one ``nvcc`` each, all started together."""
-    names = names or tuple(SOURCES)
+    names = names or tuple(KERNELS)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = []
     for name in names:
@@ -84,7 +103,9 @@ def build(*names: str, timeout: float = 900.0) -> Dict[str, Path]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        kern = KERNELS[name]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(kern.csrc / src) for src in kern.sources)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((name, proc, tmp, out))
