@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--previous DIR]
 
 Drives the port's main paths on the GPU and stops at the first failure
 with a non-zero exit: the solve service answering dense solves and
@@ -42,11 +42,17 @@ prints one line:
      version, and the service's requests/s and p50/p99 latency of phase 4;
   9. simplex kernel against plain: ``projection_simplex_batched`` (the
      kernel) against the plain PyTorch bisection on the same CUDA tensors
-     at (R, d) ∈ {(4, 5), (16, 33), (64, 1000), (3, 4097), (50000, 100)},
-     float32 and float64 input: max |Δ| ≤ 1e-5·max(1, max|y|) and row sums
-     within 1e-4 of the scale; the op's backward, ``torch.func.jvp`` and
-     ``torch.func.vmap`` on CUDA tensors against the closed form and the
-     plain version on the CPU;
+     at (R, d) ∈ {(4, 5), (16, 33), (64, 1000), (3, 4097), (50000, 100),
+     (6, 1), (40, 20), (40, 101), (500, 200), (300, 300), (300, 700)} —
+     every register layout of ``kernel.layout`` (8, 16 and 32 lanes a row
+     at 16 values a lane, 32 lanes at 32) and the
+     shared-memory path, each shape printed with its layout and the run
+     failing unless all are taken — and at (64, 100) and (8, 2000) rows
+     whose threshold equals d - 1 of their values (the kernel's early end
+     cannot trigger), float32 and float64 input: max |Δ| ≤
+     1e-5·max(1, max|y|) and row sums within 1e-4 of the scale; the op's
+     backward, ``torch.func.jvp`` and ``torch.func.vmap`` on CUDA tensors
+     against the closed form and the plain version on the CPU;
  10. SVM slice at CIFAR-100's shape (m = 50,000 training rows, p = 3,072
      features, k = 100 classes, 10,000 validation rows; synthetic data
      from ``--seed`` with ``benchmarks/svm_hyperopt.py``'s recipe, float32,
@@ -61,7 +67,13 @@ prints one line:
      Reported, not gated: the
      mirror-descent fixed point's hypergradient at the same x* (Fig. 4c);
  11. times, with the card's name and power limit: the simplex kernel at
-     (50000, 100) float32 by CUDA events, its bound, the plain version, the
+     (50000, 100) float32 (twice, device time: launches replayed from a
+     CUDA graph between CUDA events; and a call through the wrapper by
+     CUDA events), on rows with ties at the threshold (the bisection's
+     50 steps, no early end), its bound (the bytes, or
+     the TPU kernel's 50 bisection steps, whichever is larger), with
+     ``--previous`` the earlier design's kernel in turns with it, the
+     plain version, the
      sort-based projection (information only: ``library_ms`` is null, no
      single PyTorch call projects onto the simplex), and the SVM phase's
      seconds per inner iteration, per backward solve and per outer step;
@@ -80,9 +92,12 @@ prints one line:
      counts; the bfloat16 calls of the first four shapes also on the
      CUDA-core kernel (``route_name="simt"``), against the same limit;
  13. WKV kernel against plain: the op against ``wkv_scan_ref`` at (B, T, H)
-     ∈ {(1, 1, 1), (2, 100, 3), (4, 2048, 40)}, head size 64, float32 and
-     bfloat16 r/k/v with float32 w, with the same limits, and a state
-     carried across a split of T equal bit for bit to one run;
+     ∈ {(1, 1, 1), (2, 100, 3), (4, 2048, 40), (1, 37, 1), (3, 130, 7)},
+     head size 64, float32 and bfloat16 r/k/v with float32 w, with and
+     without ``state0``, with the same limits, each shape printed with how
+     the kernel stages its T (chunks of 16 and a short one; the run fails
+     unless one short chunk alone, whole chunks alone and both are taken),
+     and a state carried across a split of T equal bit for bit to one run;
  14. ``qwen1.5-4b`` at its full published config (40 layers, d 2560,
      vocab 151,936), parameters drawn on the card from ``--seed``, tokens
      (B, S) = (4, 2048).  In float32 (the algorithm at full size):
@@ -115,7 +130,9 @@ prints one line:
      ``F.scaled_dot_product_attention`` on the same tensors (yardstick
      only — the port never calls it), each with its TFLOP/s; its bound and
      the plain version; the WKV kernel at (4, 2048, 40, 64) bfloat16
-     r/k/v, its bound, the plain scan and ``wkv_chunked`` (no single
+     r/k/v (twice, device time as in 11; with ``--previous`` the earlier
+     design's kernel in turns with it), its bound, the plain scan and
+     ``wkv_chunked`` (no single
      PyTorch call computes it); the prefill step's ms and tokens/s with
      and without the kernels, one kernel prefill step under
      ``torch.profiler`` (device time of the port's kernels, of the matrix
@@ -127,7 +144,10 @@ flash attention, ``ops.LAUNCHES_BY_ROUTE``), set to 0 just before each
 main-path phase (4-7 for batched_cg, 10 for simplex_proj, each kernel
 prefill of 14 for flash_attention and of 15 for rwkv_wkv; the JSON line
 reports the bfloat16 one, for flash attention its tc launches, and adds
-the CUDA-core kernel's time as ``previous_ms``) and read just after.  The
+the CUDA-core kernel's time as ``previous_ms``) and read just after.
+``previous_ms`` of simplex_proj and rwkv_wkv is the earlier design's
+time, measured when ``--previous`` names an earlier checkout (its sources
+are not kept beside the current ones), and null otherwise.  The
 line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repo's ``src/`` beside it, the script exits
@@ -136,6 +156,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import re
@@ -157,7 +178,16 @@ HYPERGRAD_TOL = 1e-6               # phase 5/6 solve tolerance (float32)
 SIMPLEX_SOURCE = "src/repro_torch/kernels/simplex_proj/csrc/simplex_proj.cu"
 SIMPLEX_REPLACES = "src/repro/kernels/simplex_proj/kernel.py:25"
 SIMPLEX_ATOL = 1e-5                # times max(1, max|y|): float32 bisection
-SIMPLEX_SHAPES = [(4, 5), (16, 33), (64, 1000), (3, 4097), (50000, 100)]
+SIMPLEX_TPU_STEPS = 50             # the TPU kernel's bisection steps (bound)
+# phase 9: (R, d); with kernel.layout's rule they take every register
+# layout (8, 16 and 32 lanes a row at 16 values a lane, 32 at 32) and the
+# shared-memory path
+SIMPLEX_SHAPES = [(4, 5), (16, 33), (64, 1000), (3, 4097), (50000, 100),
+                  (6, 1), (40, 20), (40, 101), (500, 200), (300, 300),
+                  (300, 700)]
+# and rows whose threshold equals one of their values, so that the early end
+# never triggers and every row runs the 50 steps: (R, d) with d - 1 ties
+SIMPLEX_TIE_SHAPES = [(64, 100), (8, 2000)]
 # phase 10: CIFAR-100's training/validation shapes (see PERF.md §4)
 SVM = dict(m=50000, p=3072, k=100, m_val=10000)
 SVM_THETA_OVER_L = 0.13            # θ₀ = 0.13·‖X‖₂², the smooth regime
@@ -190,7 +220,8 @@ FA_BF16_SHAPES = [(1, 77, 77, 4, 1, 80, True), (1, 64, 130, 2, 2, 256, True),
                   # a head narrower than one 64-column panel: the op sends
                   # it to the CUDA-core kernel
                   (2, 100, 100, 4, 2, 32, True)]
-WKV_SHAPES = [(1, 1, 1), (2, 100, 3), (4, 2048, 40)]   # (B, T, H), N = 64
+# (B, T, H), N = 64: one step; one short chunk; partial last chunks; odd H
+WKV_SHAPES = [(1, 1, 1), (2, 100, 3), (4, 2048, 40), (1, 37, 1), (3, 130, 7)]
 LM_PREFILL = (4, 2048)             # (B, S) of the prefill step
 LM_DECODE = (2, 64)                # (B, S) of decode against prefill
 LM_F32_RTOL = 1e-3                 # ‖Δ‖/‖ref‖ of float32 prefill logits
@@ -242,8 +273,8 @@ def ridge_batch(gen, B, d, m, dtype, device, theta_range=(1e-2, 1.0)):
 
 
 def ptxas_summary(log: str) -> str:
-    """Per kernel of a ``-Xptxas -v`` log: registers, spill stores / loads
-    in bytes, and whether ptxas serialized its wgmma.  Names are demangled
+    """Per kernel of a ``-Xptxas -v`` log: registers, stack frame and spill
+    stores / loads in bytes, and whether ptxas serialized its wgmma.  Names are demangled
     by the CUDA toolkit's ``cu++filt`` (``-p``: without parameters)."""
     from repro_torch.kernels import _build
     rows, name, serialized = [], None, set()
@@ -255,10 +286,10 @@ def ptxas_summary(log: str) -> str:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            spill = f"spill {m.group(1)}/{m.group(2)} B"
+            spill = f"stack {m.group(1)} B, spill {m.group(2)}/{m.group(3)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             rows.append((name, f"{m.group(1)} registers, {spill}"))
@@ -276,6 +307,35 @@ def ptxas_summary(log: str) -> str:
         short.replace("void ", "", 1).replace("(anonymous namespace)::", "")
         + f" {regs}" + (", wgmma serialized" if n in serialized else "")
         for (n, regs), short in zip(rows, shown))
+
+
+def start_previous_build(previous: Path):
+    """Start one ``nvcc`` each (the port's flags) for the simplex_proj and
+    rwkv_wkv libraries of an earlier checkout of the repository, into
+    ``build/previous/``; returns what :func:`load_previous` waits for."""
+    from repro_torch.kernels import _build
+    out = ROOT / "build" / "previous"
+    out.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in ("simplex_proj", "rwkv_wkv"):
+        source = previous / "src" / "repro_torch" / "kernels" / name / \
+            "csrc" / f"{name}.cu"
+        check(source.is_file(), f"--previous: {source} not found")
+        lib = out / f"lib{name}.so"
+        running[name] = (subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return running
+
+
+def load_previous(running):
+    """Wait for the builds of :func:`start_previous_build` and load them."""
+    libs = {}
+    for name, (proc, lib) in running.items():
+        log, _ = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"build of the earlier {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
 
 
 def sync(device) -> None:
@@ -485,6 +545,64 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_time_ms(fn, reps, replays=5):
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph and replayed between two CUDA events, so that the host's cost of
+    each call (checks, allocation, the ctypes call) is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def in_turns(kernel_fn, earlier_fn, reps):
+    """Device times of ``kernel_fn`` twice and, when given, of
+    ``earlier_fn`` (the earlier design) around them: earlier, kernel,
+    kernel, earlier.  Returns (kernel times, earlier times)."""
+    if earlier_fn is None:
+        return [graph_time_ms(kernel_fn, reps) for _ in range(2)], []
+    first = graph_time_ms(earlier_fn, reps)
+    kernel_ms = [graph_time_ms(kernel_fn, reps) for _ in range(2)]
+    return kernel_ms, [first, graph_time_ms(earlier_fn, reps)]
+
+
+def earlier_function(lib, name, argtypes):
+    """A function of an earlier design's library, bound with ctypes, that
+    raises when its launch is refused."""
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        check(fn(*args) == 0, f"the earlier {name} did not launch")
+    return call
+
+
+def timing(kernel_ms, earlier_ms, earlier_diff):
+    """The keys phases 11 and 16 report for a kernel timed by
+    :func:`in_turns`."""
+    return dict(ms=sum(kernel_ms) / 2, kernel_ms=kernel_ms,
+                previous_ms=sum(earlier_ms) / 2 if earlier_ms else None,
+                previous_turns=earlier_ms, previous_diff=earlier_diff)
+
+
 def phase_times(device, A_np, b_np, tol):
     """Kernel, plain and library times at (64, 512) float32, and the bound."""
     import torch
@@ -514,32 +632,59 @@ def phase_times(device, A_np, b_np, tol):
                 streamed_gb_s=sum(iters) / B * nbytes / (ms * 1e-3) / 1e9)
 
 
-def phase_simplex_vs_plain(device, gen, shapes):
-    """Simplex kernel (via the op) against the plain bisection, and the
-    op's derivatives and vmap rule on CUDA tensors against the CPU."""
+def simplex_path(d):
+    """The kernel layout that ``kernel.layout`` picks for rows of d."""
+    from repro_torch.kernels.simplex_proj import kernel
+    lanes, values = kernel.layout(d)
+    return "smem" if values == 0 else f"L={lanes} V={values}"
+
+
+def tie_rows(gen, R, d, scale, dtype, device):
+    """Rows c·1 + scale·e_k (c a non-zero integer in [-3, 3], k at random):
+    the threshold is c, a value of d - 1 entries, so the bracket never
+    empties and the kernel's early end cannot trigger."""
+    import torch
+    c = torch.randint(1, 4, (R, 1), generator=gen, device=device) * (
+        2 * torch.randint(0, 2, (R, 1), generator=gen, device=device) - 1)
+    y = c.to(dtype).expand(R, d).clone()
+    k = torch.randint(0, d, (R,), generator=gen, device=device)
+    y[torch.arange(R, device=device), k] += scale
+    return y
+
+
+def phase_simplex_vs_plain(device, gen, shapes, tie_shapes):
+    """Simplex kernel (via the op) against the plain bisection, with the
+    kernel layout each shape took, and the op's derivatives and vmap rule
+    on CUDA tensors against the CPU."""
     import torch
     import torch.func
     from repro_torch.kernels.simplex_proj import ops, ref
     worst, err_main = {}, None
-    for R, d in shapes:
+    cases = [(R, d, False) for R, d in shapes] + \
+        [(R, d, True) for R, d in tie_shapes]
+    for R, d, ties in cases:
         for dtype in (torch.float32, torch.float64):
             name = str(dtype).replace("torch.", "")
             scale = 3.0 if (R, d) == (16, 33) else 1.0
-            y = 3 * torch.randn(R, d, generator=gen, device=device,
-                                dtype=dtype)
+            if ties:
+                y = tie_rows(gen, R, d, scale, dtype, device)
+            else:
+                y = 3 * torch.randn(R, d, generator=gen, device=device,
+                                    dtype=dtype)
             x = ops.projection_simplex_batched(y, scale)
             sync(device)
             want = ref.projection_simplex_rows_ref(y, scale)
             err = float((x - want).abs().max())
             limit = SIMPLEX_ATOL * max(1.0, float(y.abs().max()))
             sums = float((x.double().sum(-1) - scale).abs().max())
-            worst[(R, d, name)] = (err, limit, sums)
-            if (R, d, name) == (50000, 100, "float32"):
+            key = f"{R}x{d}{' ties' if ties else ''} {name}"
+            worst[key] = (err, limit, sums, simplex_path(d))
+            if (R, d, name, ties) == (50000, 100, "float32", False):
                 err_main = err
             check(x.dtype == dtype and err <= limit,
-                  f"simplex kernel vs plain at R={R} d={d} {name}: max |Δ| "
+                  f"simplex kernel vs plain at {key}: max |Δ| "
                   f"= {err:.3e} > {limit:.3e}")
-            check(sums <= 1e-4, f"simplex kernel at R={R} d={d} {name}: row"
+            check(sums <= 1e-4, f"simplex kernel at {key}: row"
                   f" sums off the scale by {sums:.3e} > 1e-4")
     # derivatives and vmap on the card against the closed form / plain CPU
     y = 3 * torch.randn(64, 1000, generator=gen, device=device,
@@ -720,23 +865,42 @@ def phase_svm(device, gen, m, p, k, m_val, outer_steps=SVM_OUTER_STEPS):
                 interior_rows=float((supp > 1).float().mean()))
 
 
-def phase_simplex_times(device, gen):
+def phase_simplex_times(device, gen, previous=None):
     """Simplex kernel, plain and sort-based times at (50000, 100) float32,
-    and the bound."""
+    and the bound; with ``previous`` (the earlier design's library, see
+    ``--previous``) that kernel too, in turns (earlier, kernel, kernel,
+    earlier), and its largest difference from the kernel."""
     import torch
     from repro_torch.core import projections
     from repro_torch.kernels.simplex_proj import kernel, ref
     R, d = 50000, 100
     y = 3 * torch.randn(R, d, generator=gen, device=device)
-    ms = cuda_time_ms(lambda: kernel.launch(y), reps=50)
+    earlier, x_prev = None, torch.empty_like(y)
+    if previous is not None:       # its C interface: y, x, R, d, scale
+        fn = earlier_function(previous, "simplex_proj_f32", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_double, ctypes.c_void_p])
+
+        def earlier():
+            fn(y.data_ptr(), x_prev.data_ptr(), R, d, 1.0,
+               torch.cuda.current_stream().cuda_stream)
+    kernel_ms, earlier_ms = in_turns(lambda: kernel.launch(y), earlier, 50)
+    ties = tie_rows(gen, R, d, 1.0, torch.float32, device)
+    ties_ms = graph_time_ms(lambda: kernel.launch(ties), 50)
+    call_ms = cuda_time_ms(lambda: kernel.launch(y), reps=50)
     plain_ms = cuda_time_ms(lambda: ref.projection_simplex_rows_ref(y),
                             reps=5)
     sort_ms = cuda_time_ms(lambda: projections.projection_simplex(y), reps=20)
     nbytes = 4 * 2 * R * d                  # y read once, x written once
-    flops = 3 * kernel.ITERS * R * d        # subtract, max, add per step
+    # the function's work is the TPU kernel's 50 steps, however early the
+    # kernel stops: subtract, max, add per value and step
+    flops = 3 * SIMPLEX_TPU_STEPS * R * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / FP32_FLOPS * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, sort_ms=sort_ms,
+    earlier_diff = None if earlier is None else \
+        float((kernel.launch(y) - x_prev).abs().max())
+    return dict(timing(kernel_ms, earlier_ms, earlier_diff), call_ms=call_ms,
+                ties_ms=ties_ms, plain_ms=plain_ms, sort_ms=sort_ms,
                 bound_ms=max(t_bytes, t_flops),
                 bound_by="bytes" if t_bytes >= t_flops else "operations",
                 t_bytes=t_bytes, t_flops=t_flops)
@@ -819,9 +983,16 @@ def wkv_inputs(device, gen, B, T, H, dtype, with_state=False):
     return r.to(dtype), k.to(dtype), v.to(dtype), w, u, s0
 
 
+def wkv_path(T):
+    """How the kernel's staging splits T: whole chunks and a short one."""
+    from repro_torch.kernels.rwkv_wkv import kernel
+    return f"{T // kernel.CHUNK} chunks of {kernel.CHUNK} + {T % kernel.CHUNK}"
+
+
 def phase_wkv_vs_plain(device, gen, shapes):
-    """WKV kernel (via the op) against the plain scan, and a state carried
-    across a split of T."""
+    """WKV kernel (via the op) against the plain scan, with how the
+    kernel's staging split each T, and a state carried across a split of
+    T."""
     import torch
     from repro_torch.kernels.rwkv_wkv import ops, ref
     worst, err_main = {}, None
@@ -838,7 +1009,7 @@ def phase_wkv_vs_plain(device, gen, shapes):
                 e_o = check_close(out, want, dtype, f"wkv vs plain at {key}")
                 e_s = check_close(state, want_s, torch.float32,
                                   f"wkv final state vs plain at {key}")
-                worst[key] = (e_o, e_s)
+                worst[key] = (e_o, e_s, wkv_path(T))
                 if (B, T, H, name, with_state) == (4, 2048, 40, "bfloat16",
                                                    False):
                     err_main = e_o
@@ -1231,15 +1402,35 @@ def flash_times(device, gen):
                     ("plain", plain_ms))})
 
 
-def wkv_times(device, gen):
+def wkv_times(device, gen, previous=None):
     """WKV kernel, plain scan and wkv_chunked at (4, 2048, 40, 64) with
-    bfloat16 r/k/v and float32 w, and the bound."""
+    bfloat16 r/k/v and float32 w, and the bound; with ``previous`` (the
+    earlier design's library, see ``--previous``) that kernel too, in
+    turns (earlier, kernel, kernel, earlier), and its largest differences
+    from the kernel (output, final state)."""
     import torch
     from repro_torch.kernels.rwkv_wkv import kernel, ref
     from repro_torch.models.rwkv import wkv_chunked
     B, T, H, N = 4, 2048, 40, 64
     r, k, v, w, u, _ = wkv_inputs(device, gen, B, T, H, torch.bfloat16)
-    ms = cuda_time_ms(lambda: kernel.launch(r, k, v, w, u), reps=10)
+    earlier, earlier_diff = None, None
+    o_prev = torch.empty_like(r)
+    s_prev = torch.empty(B, H, N, N, device=device)
+    if previous is not None:       # the same C interface as the kernel's
+        fn = earlier_function(previous, "rwkv_wkv_bf16",
+                              [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                              + [ctypes.c_void_p])
+
+        def earlier():
+            fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+               u.data_ptr(), None, o_prev.data_ptr(), s_prev.data_ptr(), B,
+               T, H, torch.cuda.current_stream().cuda_stream)
+    kernel_ms, earlier_ms = in_turns(lambda: kernel.launch(r, k, v, w, u),
+                                     earlier, 10)
+    if earlier is not None:
+        o_new, s_new = kernel.launch(r, k, v, w, u)
+        earlier_diff = (float((o_new.float() - o_prev.float()).abs().max()),
+                        float((s_new - s_prev).abs().max()))
     plain_ms = cuda_time_ms(lambda: ref.wkv_scan_ref(r, k, v, w, u), reps=1)
     chunked_ms = cuda_time_ms(lambda: wkv_chunked(r, k, v, w, u), reps=3)
     n = B * T * H * N
@@ -1248,11 +1439,24 @@ def wkv_times(device, gen):
     flops = 5 * N * N * B * T * H      # 2N² for o, 3N² for S a (b, h, t)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / FP32_FLOPS * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, chunked_ms=chunked_ms,
+    return dict(timing(kernel_ms, earlier_ms, earlier_diff),
+                plain_ms=plain_ms, chunked_ms=chunked_ms,
                 bound_ms=max(t_bytes, t_flops),
                 bound_by="bytes" if t_bytes >= t_flops else "operations",
                 t_bytes=t_bytes, t_flops=t_flops, mb=nbytes / 1e6,
                 gflop=flops / 1e9)
+
+
+def previous_line(t):
+    """The earlier design's times and difference, for phases 11 and 16."""
+    if t["previous_ms"] is None:
+        return "earlier design not measured (no --previous)"
+    diff = t["previous_diff"]
+    diff = diff if isinstance(diff, tuple) else (diff,)
+    return (f"earlier design (--previous) " + " / ".join(
+        f"{ms:.4f}" for ms in t["previous_turns"]) + " ms in turns ("
+        f"{t['previous_ms'] / t['ms']:.2f}x the kernel's time), max |Δ| "
+        "from the kernel " + " / ".join(f"{e:.2e}" for e in diff))
 
 
 def zeroed(op):
@@ -1283,6 +1487,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of every random problem the run draws")
+    ap.add_argument("--previous", type=Path, default=None,
+                    help="an earlier checkout of the repository (e.g. "
+                         "unpacked by git archive): its simplex_proj and "
+                         "rwkv_wkv kernels are built and timed in turns "
+                         "with this checkout's (previous_ms)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1309,7 +1518,10 @@ def main(argv=None) -> None:
 
     # 2. build
     t0 = time.perf_counter()
+    running = None if args.previous is None \
+        else start_previous_build(args.previous.resolve())
     _build.build()
+    previous = {} if running is None else load_previous(running)
     built_s = time.perf_counter() - t0
     for kname, source in (("batched_cg", KERNEL_SOURCE),
                           ("simplex_proj", SIMPLEX_SOURCE),
@@ -1319,6 +1531,9 @@ def main(argv=None) -> None:
         ptx = ptxas_summary(_build.build_log(kname))
         say("2 build", f"{kname} from {source} (all four in {built_s:.1f} s,"
             f" 0 if cached): {ptx}")
+    if previous:
+        say("2 build", f"earlier simplex_proj and rwkv_wkv from "
+            f"{args.previous}")
 
     # 3. kernel against plain
     worst, err_main = phase_kernel_vs_plain(
@@ -1396,11 +1611,16 @@ def main(argv=None) -> None:
             for k, v in s4["breakdown"].items()))
 
     # 9. simplex kernel against plain
-    worst9, err9, deriv9 = phase_simplex_vs_plain(device, gen, SIMPLEX_SHAPES)
-    say("9 simplex vs plain", "max |Δ| (limit) max |row sum - scale| per "
-        "shape: " + ", ".join(
-            f"{R}x{d} {n}={e:.2e} ({lim:.1e}) {sm:.1e}"
-            for (R, d, n), (e, lim, sm) in worst9.items())
+    worst9, err9, deriv9 = phase_simplex_vs_plain(
+        device, gen, SIMPLEX_SHAPES, SIMPLEX_TIE_SHAPES)
+    paths9 = {path for *_, path in worst9.values()}
+    every9 = {"L=8 V=16", "L=16 V=16", "L=32 V=16", "L=32 V=32", "smem"}
+    check(paths9 == every9, f"phase 9: the shapes took the kernel layouts "
+          f"{sorted(paths9)}, not every one of {sorted(every9)}")
+    say("9 simplex vs plain", "[layout] max |Δ| (limit) max |row sum - "
+        "scale| per shape: " + ", ".join(
+            f"{key} [{path}]={e:.2e} ({lim:.1e}) {sm:.1e}"
+            for key, (e, lim, sm, path) in worst9.items())
         + f"; on the card vs CPU closed form: backward "
         f"{deriv9['backward']:.1e}, jvp {deriv9['jvp']:.1e}, vmap "
         f"{deriv9['vmap']:.1e}")
@@ -1435,11 +1655,16 @@ def main(argv=None) -> None:
         f"{s10['support_mean']:.4f}, interior rows {s10['interior_rows']:.4f}")
 
     # 11. times
-    t11 = phase_simplex_times(device, gen)
+    t11 = phase_simplex_times(device, gen, previous.get("simplex_proj"))
     inner_total = sum(st["inner"] for st in s10["steps"])
     fwd_total = sum(st["fwd_s"] for st in s10["steps"])
     say("11 times", f"[{card}] simplex_proj (50000, 100) float32: kernel "
-        f"{t11['ms']:.4f} ms, bound {t11['bound_ms']:.4f} ms (bytes "
+        f"{t11['kernel_ms'][0]:.4f} / {t11['kernel_ms'][1]:.4f} ms of device "
+        f"time ({t11['bound_ms'] / t11['ms'] * 100:.1f} % of the bound), "
+        f"{t11['call_ms']:.4f} ms a call through kernel.launch, "
+        f"{t11['ties_ms']:.4f} ms on rows with ties at the threshold (every "
+        "row 50 steps), "
+        + previous_line(t11) + f", bound {t11['bound_ms']:.4f} ms (bytes "
         f"{t11['t_bytes']:.4f} ms, operations {t11['t_flops']:.4f} ms), "
         f"plain {t11['plain_ms']:.4f} ms, sort-based projection_simplex "
         f"{t11['sort_ms']:.4f} ms | svm: setup {s10['setup_s']:.3f} s, "
@@ -1464,9 +1689,16 @@ def main(argv=None) -> None:
 
     # 13. WKV kernel against plain
     worst13, err13 = phase_wkv_vs_plain(device, gen, WKV_SHAPES)
-    say("13 wkv vs plain", "max |Δ| (output, final state) per (B, T, H, "
-        "dtype, state): " + ", ".join(
-            f"{k}=({o:.2e}, {st:.2e})" for k, (o, st) in worst13.items())
+    from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
+    staged13 = {(T >= wkv_kernel.CHUNK, T % wkv_kernel.CHUNK > 0)
+                for _, T, *_ in worst13}
+    check(staged13 == {(False, True), (True, False), (True, True)},
+          "phase 13: the shapes do not take every staging of T (one short "
+          "chunk, whole chunks only, whole chunks and a short one)")
+    say("13 wkv vs plain", "[staging of T] max |Δ| (output, final state) "
+        "per (B, T, H, dtype, state): " + ", ".join(
+            f"{k} [{path}]=({o:.2e}, {st:.2e})"
+            for k, (o, st, path) in worst13.items())
         + "; state carried across a split of T: bit for bit")
 
     # 14. qwen1.5-4b, 15. rwkv6-3b
@@ -1486,7 +1718,7 @@ def main(argv=None) -> None:
 
     # 16. times
     t16 = flash_times(device, gen)
-    w16 = wkv_times(device, gen)
+    w16 = wkv_times(device, gen, previous.get("rwkv_wkv"))
     tok = LM_PREFILL[0] * LM_PREFILL[1]
     tf = t16["tflops"]
     say("16 times", f"[{card}] flash_attention (4, 2048, 20, 128) bfloat16 "
@@ -1502,7 +1734,9 @@ def main(argv=None) -> None:
         f"({tf['plain']:.1f} TFLOP/s); qwen1.5-4b prefill with / without "
         f"the kernel {s14['kernel_s'] / s14['plain_s']:.3f} | "
         f"rwkv_wkv (4, 2048, 40, 64) bfloat16 r/k/v: kernel "
-        f"{w16['ms']:.4f} ms, bound {w16['bound_ms']:.4f} ms ("
+        f"{w16['kernel_ms'][0]:.4f} / {w16['kernel_ms'][1]:.4f} ms ("
+        f"{w16['bound_ms'] / w16['ms'] * 100:.1f} % of the bound), "
+        + previous_line(w16) + f", bound {w16['bound_ms']:.4f} ms ("
         f"{w16['gflop']:.2f} GFLOP at 5N² a step: operations "
         f"{w16['t_flops']:.4f} ms; {w16['mb']:.1f} MB: bytes "
         f"{w16['t_bytes']:.4f} ms), plain scan {w16['plain_ms']:.4f} ms, "
@@ -1530,7 +1764,7 @@ def main(argv=None) -> None:
         "replaces": SIMPLEX_REPLACES, "launches": s10["launches"],
         "max_abs_err": err9, "ms": t11["ms"], "plain_ms": t11["plain_ms"],
         "bound_ms": t11["bound_ms"], "bound_by": t11["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "previous_ms": t11["previous_ms"]}, {
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
         "replaces": FA_REPLACES,
         "launches": s14["bf16"]["routes"]["tc"],
@@ -1541,7 +1775,8 @@ def main(argv=None) -> None:
         "replaces": WKV_REPLACES, "launches": s15["bf16"]["launches"],
         "max_abs_err": err13, "ms": w16["ms"], "plain_ms": w16["plain_ms"],
         "bound_ms": w16["bound_ms"], "bound_by": w16["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None, "previous_ms": w16["previous_ms"]}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
 

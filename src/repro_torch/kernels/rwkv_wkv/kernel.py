@@ -1,8 +1,9 @@
 """ctypes binding of the hand-written Hopper WKV-6 kernel.
 
-The CUDA source is ``csrc/rwkv_wkv.cu`` (one thread block of 64 threads per
-(batch, head), the state in registers; see its header for the design and
-what bounds it).  :func:`launch` checks its arguments, allocates the
+The CUDA source is ``csrc/rwkv_wkv.cu`` (two blocks of 64 threads per
+(batch, head), each thread keeping an 8 x 4 tile of the state in
+registers, the inputs staged by ``cp.async`` a chunk ahead; see its header
+for the design and what bounds it).  :func:`launch` checks its arguments, allocates the
 outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch was refused.  It takes CUDA tensors only: the plain
 version for CPU tensors is ``ref.py``, and the choice between them is made
@@ -18,6 +19,8 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_SIZE = 64     # kN in csrc/rwkv_wkv.cu
+CHUNK = 16         # time steps staged at once: kChunk
+ALIGN = 16         # bytes: r, k, v and w are copied in 16-byte pieces
 
 _FUNCS = {torch.float32: "rwkv_wkv_f32", torch.bfloat16: "rwkv_wkv_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -37,7 +40,8 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     r, k, v: (B, T, H, 64), all float32 or all bfloat16; w: (B, T, H, 64)
     float32; u: (H, 64) float32; state0: (B, H, 64, 64) float32 or None
-    (zeros); all contiguous, on one CUDA device.  Returns (o (B, T, H, 64)
+    (zeros); all contiguous, on one CUDA device, r, k, v and w 16-byte
+    aligned (as PyTorch allocates them).  Returns (o (B, T, H, 64)
     of r's dtype, final state (B, H, 64, 64) float32).
     """
     ts = [r, k, v, w, u] + ([] if state0 is None else [state0])
@@ -66,10 +70,13 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if state0 is not None and tuple(state0.shape) != (B, H, N, N):
         raise ValueError(f"rwkv_wkv kernel expects state0 ({B}, {H}, {N}, "
                          f"{N}); got {tuple(state0.shape)}")
-    if B * H >= 2 ** 31 or T >= 2 ** 31:
+    if 2 * B * H >= 2 ** 31 or T >= 2 ** 31:
         raise ValueError(f"rwkv_wkv kernel grid too large: B*H={B * H}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("rwkv_wkv kernel needs contiguous tensors")
+    if any(t.data_ptr() % ALIGN for t in (r, k, v, w)):
+        raise ValueError(f"rwkv_wkv kernel needs r, k, v and w aligned to "
+                         f"{ALIGN} bytes")
     o = torch.empty_like(r)
     state = torch.empty(B, H, N, N, dtype=torch.float32, device=r.device)
     if B * H == 0:

@@ -12,7 +12,9 @@ The kernel reads w, u and state0 in float32: the op widens them to float32
 ``astype(float32)`` does, and never rounds w down.  r, k and v keep their
 type (float32 or bfloat16, one for all three); the output has r's type and
 the final state is float32.  Any T ≥ 1 (the JAX op needs T to be a
-multiple of its chunk, min(64, T)).
+multiple of its chunk, min(64, T)).  The kernel copies r, k, v and w in
+16-byte pieces: a tensor that does not start on such a boundary (a view
+at an odd offset) is copied first.
 
 ``LAUNCHES`` counts kernel launches (a plain int, for showing that a run
 went through the kernel).  The JAX op's ``chunk`` and ``interpret`` are
@@ -30,6 +32,12 @@ from repro_torch.kernels.rwkv_wkv.ref import wkv_scan_ref
 LAUNCHES = 0
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a ``kernel.ALIGN``-byte boundary."""
+    t = t.contiguous()
+    return t if t.data_ptr() % kernel.ALIGN == 0 else t.clone()
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         u: torch.Tensor, state0: Optional[torch.Tensor] = None):
     """r, k, v, w: (B, T, H, N); u: (H, N); state0: (B, H, N, N) or None.
@@ -43,8 +51,8 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                                "under torch.no_grad()")
         f32 = torch.float32
         out = kernel.launch(
-            r.contiguous(), k.contiguous(), v.contiguous(),
-            w.to(f32).contiguous(), u.to(f32).contiguous(),
+            _aligned(r), _aligned(k), _aligned(v), _aligned(w.to(f32)),
+            u.to(f32).contiguous(),
             None if state0 is None else state0.to(f32).contiguous())
         LAUNCHES += 1
         return out

@@ -1,11 +1,13 @@
 """Plain PyTorch bisection: the simplex-projection kernel's CPU path.
 
-The same computation as ``repro/kernels/simplex_proj/kernel.py`` (and the
-port's CUDA kernel): in float32 whatever the input type, ``kernel.ITERS``
-(50) bisection steps on φ(τ) = Σ max(y − τ, 0) − scale over the bracket
-hi = max(y), lo = min(max(y) − scale, min(y) − scale/d), output
-max(y − τ, 0) cast back to the input type.  The sort-based oracle is
-``repro_torch.core.projections.projection_simplex``.
+The same computation as ``repro/kernels/simplex_proj/kernel.py``: in
+float32 whatever the input type, ``kernel.ITERS`` (50) bisection steps on
+φ(τ) = Σ max(y − τ, 0) − scale over the bracket hi = max(y),
+lo = min(max(y) − scale, min(y) − scale/d), output max(y − τ, 0) cast back
+to the input type.  The port's CUDA kernel bisects the same bracket but
+stops once no value lies inside it and takes τ in closed form from the
+support, which agrees with the 50 steps to float32 rounding.  The
+sort-based oracle is ``repro_torch.core.projections.projection_simplex``.
 """
 from __future__ import annotations
 

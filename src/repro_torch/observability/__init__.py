@@ -4,7 +4,9 @@ Counterpart of ``repro.observability``; imports nothing else of the
 package:
 
   * **events** — the ``SolveEvent`` stream behind the process-level
-    :func:`observe` switch (one boolean check when off);
+    :func:`observe` switch (one boolean check when off); ``jit_event`` and
+    ``jit_event_pair``, the reference's names for events from traced code,
+    are ``emit`` and ``emit_pair`` here;
   * **spans** — a host-side tracer writing JSONL traces;
   * **metrics** — a ``MetricsRegistry`` of counters/gauges/histograms with
     a JSON snapshot and Prometheus text exposition;
@@ -30,9 +32,15 @@ from repro_torch.observability.spans import (Span, Tracer, configure_tracer,
                                              current_tracer, remove_tracer,
                                              span)
 
+# The reference stages these inside traced programs; eager PyTorch has no
+# traced program, so the event is emitted at the call.
+jit_event = emit
+jit_event_pair = emit_pair
+
 __all__ = [
     "EVENT_KINDS", "SolveEvent", "observe", "observing",
-    "observing_iterations", "emit", "emit_pair", "subscribe", "recorded",
+    "observing_iterations", "emit", "emit_pair", "jit_event",
+    "jit_event_pair", "subscribe", "recorded",
     "clear_recorded",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "global_registry",
     "reset_global_registry", "DEFAULT_BUCKETS", "ITERATION_BUCKETS",

@@ -3,16 +3,32 @@
 An AST scan of every module under ``src/repro_torch/`` and of
 ``chip_smoke.py``: no ``import jax`` / ``from jax ...`` and no
 ``import repro`` / ``from repro ...`` (``repro_torch`` itself is fine).
+The port's observability package exports the reference's public names,
+``jit_event`` and ``jit_event_pair`` among them, and those two deliver the
+same events as ``emit`` and ``emit_pair``.
 """
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "repro")
+# the public names of repro.observability, each exported by the port
+OBSERVABILITY_NAMES = (
+    "EVENT_KINDS", "SolveEvent", "observe", "observing",
+    "observing_iterations", "emit", "jit_event", "jit_event_pair",
+    "subscribe", "recorded", "clear_recorded",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "global_registry",
+    "reset_global_registry", "DEFAULT_BUCKETS", "ITERATION_BUCKETS",
+    "LATENCY_BUCKETS",
+    "Span", "Tracer", "configure_tracer", "current_tracer",
+    "remove_tracer", "span",
+    "load_trace", "summarize", "format_summary",
+)
 
 
 def _imported_roots(path: pathlib.Path):
@@ -75,3 +91,38 @@ def test_no_jax_or_repro_imports(path):
     bad = sorted({root for root in _imported_roots(path)
                   if root in BANNED})
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("name", OBSERVABILITY_NAMES)
+def test_port_exports_observability_name(name):
+    import repro.observability as reference
+    import repro_torch.observability as port
+    assert name in reference.__all__
+    assert name in port.__all__ and hasattr(port, name)
+
+
+def test_jit_events_deliver_what_emit_delivers():
+    from repro_torch import observability as obs
+
+    def stream(single, pair):
+        obs.clear_recorded()
+        with obs.observe(True, record=True):
+            assert obs.observing()
+            single("solve", {"solver": "cg", "B": 3},
+                   iterations=np.array([4, 7, 2]), converged=True)
+            pair("backward_start", "backward_done", {"backward": "cg"},
+                 residual=np.float32(1e-6))
+        events = [(ev.kind, ev.tags, ev.values) for ev in obs.recorded()]
+        obs.clear_recorded()
+        return events
+
+    want = stream(obs.emit, obs.emit_pair)
+    got = stream(obs.jit_event, obs.jit_event_pair)
+    assert [kind for kind, _, _ in got] == ["solve", "backward_start",
+                                            "backward_done"]
+    assert len(got) == len(want)
+    for (kind, tags, values), (kind_w, tags_w, values_w) in zip(got, want):
+        assert kind == kind_w and tags == tags_w
+        assert values.keys() == values_w.keys()
+        for key in values:
+            np.testing.assert_array_equal(values[key], values_w[key])

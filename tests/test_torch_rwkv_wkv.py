@@ -8,10 +8,14 @@ within 2e-5 (the same recurrence in float32; only the order of the sums
 over i differs).  A state carried across a split of T equals one run over
 the whole T.
 
+The op hands the kernel r, k, v and w on 16-byte boundaries (a view at an
+odd offset is copied first).
+
 Card (``cuda`` marker; skipped without a CUDA device): the hand-written
 kernel against the plain scan on the same CUDA tensors, float32 and
-bfloat16 r/k/v (w always float32), with and without ``state0``, at T that
-is not a multiple of the kernel's staging chunk::
+bfloat16 r/k/v (w always float32), with and without ``state0``, at T of
+one short chunk (1, 5), whole chunks only (2048) and whole chunks and a
+short one (37, 100, 130, 300) of the kernel's staging, and odd H::
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda \
         tests/test_torch_rwkv_wkv.py
@@ -80,6 +84,17 @@ def test_bf16_inputs_keep_their_type_and_w_stays_float32():
     torch.testing.assert_close(state, want_s, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("offset", [0, 1, 8])
+def test_op_aligns_what_the_kernel_copies(offset):
+    flat = torch.arange(offset + 2 * 3 * N, dtype=torch.bfloat16)
+    view = flat[offset:].view(2, 3, 1, N)
+    got = ops._aligned(view)
+    assert got.data_ptr() % kernel.ALIGN == 0 and got.is_contiguous()
+    assert torch.equal(got, view)
+    if view.data_ptr() % kernel.ALIGN == 0:
+        assert got.data_ptr() == view.data_ptr()    # no copy when aligned
+
+
 def test_cpu_path_never_launches_and_device_rule():
     r, k, v, w, u, _ = _torch(_inputs(1, 4, 1))
     before = ops.LAUNCHES
@@ -113,8 +128,9 @@ def _limit(want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "state0"])
-@pytest.mark.parametrize("B,T,H", [(1, 1, 1), (2, 100, 3), (2, 300, 40)],
-                         ids=str)
+@pytest.mark.parametrize("B,T,H", [(1, 1, 1), (2, 100, 3), (2, 300, 40),
+                                   (1, 5, 2), (1, 37, 1), (3, 130, 7),
+                                   (1, 2048, 3)], ids=str)
 def test_kernel_matches_plain_on_card(cuda_device, B, T, H, with_state,
                                       dtype):
     r, k, v, w, u, s0 = _torch(_inputs(B, T, H, seed=T, with_state=with_state),
@@ -153,3 +169,21 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
                 u[..., :32])
     with pytest.raises(TypeError):
         ops.wkv(r.bfloat16(), k, v, w, u)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_views_at_an_odd_offset_on_card(cuda_device):
+    r, k, v, w, u, _ = _torch(_inputs(1, 20, 2, seed=9), cuda_device)
+    r, k, v = (a.bfloat16() for a in (r, k, v))
+
+    def shifted(a):        # the same values, 2 bytes past an aligned start
+        flat = torch.cat([a.new_zeros(1), a.flatten()])
+        return flat[1:].view(a.shape)
+
+    rs, ks, vs = (shifted(a) for a in (r, k, v))
+    assert rs.data_ptr() % kernel.ALIGN != 0
+    out, state = ops.wkv(rs, ks, vs, w, u)
+    torch.cuda.synchronize()
+    want, want_s = ops.wkv(r, k, v, w, u)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    torch.testing.assert_close(state, want_s, rtol=0, atol=0)

@@ -13,9 +13,18 @@ a point away from the support's kinks, within 1e-9 (closed-form Jacobians
 of the same support); ``torch.func.vmap`` of the op against the folded
 call.
 
+The kernel's layout rule (``kernel.layout``) at every boundary of its
+lanes and values, and a float32 emulation of the kernel's bisection with
+its early end (the count of values above each end of the bracket; τ in
+closed form once the counts meet) against the plain 50 steps and the
+sort-based oracle: random rows end early, rows whose threshold equals d - 1
+of their values (a non-zero integer) run the 50 steps.
+
 Card (``cuda`` marker; skipped without a CUDA device): the hand-written
 kernel against the plain version on the same CUDA tensors, float32 and
-float64 input, including a row longer than 1024 (the shared-memory path).
+float64 input, at shapes that take every layout of the rule (8, 16 or 32
+lanes a row, 16 or 32 values a lane, and the shared-memory path for rows
+longer than 1024), and rows with ties at the threshold.
 The JAX package is imported inside the tests that use it, so that on a
 machine without JAX the card tests run alone::
 
@@ -32,6 +41,15 @@ from repro_torch.kernels.simplex_proj import kernel, ops, ref
 
 ATOL = 1e-5
 SHAPES = [(8, 16), (16, 33), (32, 128), (4, 5), (2, 8, 12)]
+# (d, lanes, values) at each boundary of kernel.layout's rule
+LAYOUTS = [(1, 8, 16), (16, 8, 16), (17, 8, 16), (32, 8, 16), (33, 8, 16),
+           (64, 8, 16), (65, 8, 16), (100, 8, 16), (128, 8, 16),
+           (129, 16, 16), (256, 16, 16), (257, 32, 16), (512, 32, 16),
+           (513, 32, 32), (1024, 32, 32), (1025, 32, 0), (32768, 32, 0)]
+# on the card: (R, d) taking every layout, and rows with ties
+CARD_SHAPES = [(4, 5), (16, 33), (64, 1000), (3, 4097), (2, 8, 12), (6, 1),
+               (40, 20), (40, 101), (500, 200), (300, 300), (300, 700),
+               (50000, 100)]
 
 
 def _jax_op():
@@ -42,6 +60,47 @@ def _jax_op():
 
 def _y(shape, seed=0):
     return np.random.default_rng(seed).standard_normal(shape) * 3
+
+
+def _tie_rows(R, d, scale=1.0, seed=0):
+    """Rows c·1 + scale·e_k, c a non-zero integer in [-3, 3]: τ = c, a value
+    of d - 1 entries.  (At c = 0 the bisection's midpoint crosses τ within
+    φ's rounding after two steps, and the early end comes there, rightly.)"""
+    rng = np.random.default_rng(seed)
+    c = rng.choice([-3.0, -2.0, -1.0, 1.0, 2.0, 3.0], (R, 1))
+    y = np.repeat(c, d, axis=1)
+    y[np.arange(R), rng.integers(0, d, R)] += scale
+    return y
+
+
+def _early_end_emulation(y, scale=1.0):
+    """csrc/simplex_proj.cu's bisection in float32, row by row at once:
+    φ(mid) = s − c·mid − scale from the sum s and count c of the values
+    above mid; stop a row once c(lo) == c(hi) and take τ = (s(lo) − scale)
+    / c(lo).  Returns (x, steps per row)."""
+    yf = y.to(torch.float32)
+    d = yf.shape[-1]
+    hi = yf.amax(-1)
+    lo = torch.minimum(hi - scale, yf.amin(-1) - scale / d)
+    s_lo, c_lo = yf.sum(-1), torch.full_like(hi, float(d))
+    c_hi = torch.zeros_like(hi)
+    steps = torch.zeros(hi.shape, dtype=torch.int64)
+    for _ in range(kernel.ITERS):
+        live = c_lo != c_hi
+        if not live.any():
+            break
+        mid = 0.5 * (lo + hi)
+        above = yf > mid[..., None]
+        s = torch.where(above, yf, 0.0).sum(-1)
+        c = above.sum(-1).to(torch.float32)
+        right = live & (s - c * mid - scale > 0)
+        left = live & ~right
+        lo, s_lo, c_lo = (torch.where(right, a, b) for a, b in
+                          ((mid, lo), (s, s_lo), (c, c_lo)))
+        hi, c_hi = torch.where(left, mid, hi), torch.where(left, c, c_hi)
+        steps += live
+    tau = torch.where(c_lo == c_hi, (s_lo - scale) / c_lo, 0.5 * (lo + hi))
+    return torch.clamp_min(yf - tau[..., None], 0.0).to(y.dtype), steps
 
 
 @pytest.mark.parametrize("scale", [0.5, 1.0, 3.0])
@@ -101,6 +160,38 @@ def test_backward_and_vmap():
     torch.testing.assert_close(g, jvp_folded, rtol=0, atol=1e-15)
 
 
+@pytest.mark.parametrize("d,lanes,values", LAYOUTS, ids=str)
+def test_layout_rule(d, lanes, values):
+    assert kernel.layout(d) == (lanes, values)
+    if values:       # registers: the fewest lanes (at least 8) that hold it
+        assert lanes * values >= d and lanes in (8, 16, 32)
+        assert lanes == 8 or values == 32 or (lanes // 2) * values < d
+
+
+@pytest.mark.parametrize("scale", [0.5, 1.0, 3.0])
+@pytest.mark.parametrize("shape", [(64, 100), (32, 5), (16, 700), (4, 2000)],
+                         ids=str)
+def test_early_end_matches_plain_and_sort_oracle(shape, scale):
+    y = torch.from_numpy(_y(shape, seed=4))
+    x, steps = _early_end_emulation(y, scale)
+    want = ref.projection_simplex_rows_ref(y, scale)
+    limit = ATOL * max(1.0, float(y.abs().max()))
+    assert float((x - want).abs().max()) <= limit
+    assert float((x - projection_simplex(y, scale)).abs().max()) <= limit
+    assert int(steps.max()) < kernel.ITERS      # every row ended early
+
+
+@pytest.mark.parametrize("shape", [(64, 100), (8, 2000), (6, 3)], ids=str)
+def test_ties_at_the_threshold_run_every_step(shape):
+    y = torch.from_numpy(_tie_rows(*shape, seed=5))
+    x, steps = _early_end_emulation(y)
+    want = ref.projection_simplex_rows_ref(y)
+    limit = ATOL * max(1.0, float(y.abs().max()))
+    assert bool((steps == kernel.ITERS).all())  # the early end never came
+    assert float((x - want).abs().max()) <= limit
+    assert float((x - projection_simplex(y)).abs().max()) <= limit
+
+
 def test_cpu_path_never_launches_and_device_rule():
     y = torch.from_numpy(_y((4, 6)))
     before = ops.LAUNCHES
@@ -123,8 +214,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("shape", [(4, 5), (16, 33), (64, 1000), (3, 4097),
-                                   (2, 8, 12)], ids=str)
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=str)
 def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     y = torch.from_numpy(_y(shape, seed=3)).to(cuda_device, dtype)
     before = ops.LAUNCHES
@@ -135,4 +225,19 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     assert x.dtype == dtype
     scale = max(1.0, float(y.abs().max()))
     assert float((x - want).abs().max()) <= ATOL * scale
+    assert float((x.sum(-1) - 1.0).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", [(64, 100), (8, 2000), (6, 3)], ids=str)
+def test_kernel_with_ties_at_the_threshold_on_card(cuda_device, shape,
+                                                   dtype):
+    y = torch.from_numpy(_tie_rows(*shape, seed=6)).to(cuda_device, dtype)
+    x = ops.projection_simplex_batched(y, 1.0)
+    torch.cuda.synchronize()
+    want = ref.projection_simplex_rows_ref(y, 1.0)
+    assert x.dtype == dtype
+    assert float((x - want).abs().max()) <= ATOL * float(y.abs().max())
     assert float((x.sum(-1) - 1.0).abs().max()) <= 1e-4
