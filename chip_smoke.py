@@ -6,7 +6,7 @@
 Drives the port's main paths on the GPU and stops at the first failure
 with a non-zero exit: the solve service answering dense solves and
 implicit hypergradients, and ``custom_root`` implicit differentiation,
-through the hand-written batched-CG kernel (phases 3-8); the paper's §4.1
+through the hand-written batched-CG kernels (phases 3-8); the paper's §4.1
 multiclass-SVM hyper-parameter optimisation — ``solve_bilevel`` over a
 ``ProjectedGradient`` inner solver — through the hand-written
 simplex-projection kernel (phases 9-11); and LM serving of ``qwen1.5-4b``
@@ -16,30 +16,43 @@ launcher and the continuous-batching engine (phases 12-16).  Each phase
 prints one line:
 
   1. card: name, device count, ``nvidia-smi`` name and power limit;
-  2. build: the four kernels are compiled from the repo's sources (one
-     ``nvcc`` each, started together; ``-Xptxas -v``: registers, shared
-     memory, spills);
+  2. build: the four kernel libraries are compiled from the repo's sources
+     (one ``nvcc`` each, started together; ``-Xptxas -v``: registers,
+     shared memory, spills);
   3. kernel against plain: forward and backward (∂A, ∂b of Σx²) of the
-     kernel against the plain PyTorch version on the same CUDA tensors, at
-     (B, d) ∈ {(3, 7), (5, 130), (64, 96), (64, 512)}, float32 and float64;
-     ‖Δ‖/‖ref‖ ≤ 1e-4 (float32) and 1e-10 (float64);
+     batched-CG op against the plain PyTorch version on the same CUDA
+     tensors, at (B, d) ∈ {(3, 7), (5, 130), (64, 96), (64, 512), (16, 300),
+     (8, 400)}, float32 and float64; ‖Δ‖/‖ref‖ ≤ 1e-4 (float32) and 1e-10
+     (float64); each (B, d, dtype) printed with the layout it launched
+     (read from ``ops.LAUNCHES_BY_LAYOUT``: the cluster route with C = 1,
+     2, 4 or 8 CTAs an instance, or the stream route), the run failing
+     unless it is the rule's (``kernel.layout``) and all five are taken;
   4. service, kernel arm: ``SolveService(cache=None)`` with 256 ridge
      systems Aᵢ = XᵢᵀXᵢ/m + θᵢI at d = 512 (Xᵢ (1024, 512) standard normal,
      θᵢ log-uniform in [1e-2, 1], float32) — 4 buckets of 64, 4 kernel
-     launches, every request converged with ‖Aᵢxᵢ − bᵢ‖/‖bᵢ‖ ≤ tol;
+     launches, all on the cluster route's C8 layout, every request
+     converged with ‖Aᵢxᵢ − bᵢ‖/‖bᵢ‖ ≤ tol;
   5. service, hypergradient arm: 64 ``submit_hypergrad`` requests on
      F(x, θ) = Xᵀ(Xx − y)/m + θx with ``solve="pallas_cg"``, each within
      1e-3 of the port's direct ``root_vjp`` with ``solve="lu"``, relative
-     to the largest hypergradient of the batch;
+     to the largest hypergradient of the batch; every launch C8;
   6. implicit diff: ``torch.autograd.grad`` through a ``custom_root``-wrapped
      ridge solver with ``solve="pallas_cg"`` at d = 512 against the closed
-     form (relative error ≤ 1e-3), the backward launching the kernel;
+     form (relative error ≤ 1e-3), the forward and the backward (the
+     solve on Aᵀ, the transposed load) launching the kernel, all C8;
   7. service, cache arm: a default service (warm-start cache on, so
      ``dense_gmres``), a cold wave and a replayed warm wave of 64 requests;
-  8. times, with the card's name and power limit: the kernel at (64, 512)
-     float32 by CUDA events, its bound, ``torch.linalg.solve`` on the same
-     batch (yardstick only — the port never calls it for this), the plain
-     version, and the service's requests/s and p50/p99 latency of phase 4;
+  8. times, with the card's name and power limit, at (64, 512) float32 and
+     tol 1e-3 and 1e-6: the cluster route by device time (launches
+     replayed from a CUDA graph between CUDA events), twice, in turns with
+     the stream route (and with ``--previous`` the earlier checkout's
+     ``batched_cg.cu``) — stream, cluster, cluster, stream; a call through
+     ``kernel.launch`` by CUDA events; its bound and share; the most
+     clusters resident at once; ``torch.linalg.solve_ex`` by device time
+     (its kernels under ``torch.profiler``) and ``torch.linalg.solve`` by
+     CUDA events (yardsticks only — the port never calls them); the plain
+     version by CUDA events (its loop reads the card every iteration); and
+     the service's requests/s and p50/p99 latency of phase 4;
   9. simplex kernel against plain: ``projection_simplex_batched`` (the
      kernel) against the plain PyTorch bisection on the same CUDA tensors
      at (R, d) ∈ {(4, 5), (16, 33), (64, 1000), (3, 4097), (50000, 100),
@@ -140,14 +153,17 @@ prints one line:
      the decode tokens/s of the launcher and the engine, for both models.
 
 Kernel launches are counted by each kernel's ``ops.LAUNCHES`` (and, for
-flash attention, ``ops.LAUNCHES_BY_ROUTE``), set to 0 just before each
-main-path phase (4-7 for batched_cg, 10 for simplex_proj, each kernel
-prefill of 14 for flash_attention and of 15 for rwkv_wkv; the JSON line
-reports the bfloat16 one, for flash attention its tc launches, and adds
-the CUDA-core kernel's time as ``previous_ms``) and read just after.
-``previous_ms`` of simplex_proj and rwkv_wkv is the earlier design's
-time, measured when ``--previous`` names an earlier checkout (its sources
-are not kept beside the current ones), and null otherwise.  The
+batched_cg, ``ops.LAUNCHES_BY_LAYOUT``; for flash attention,
+``ops.LAUNCHES_BY_ROUTE``), set to 0 just before each main-path phase
+(4-7 for batched_cg, phase 6's forward and backward each on their own,
+10 for simplex_proj, each kernel prefill of 14 for flash_attention and
+of 15 for rwkv_wkv; the JSON line reports the bfloat16 one, for flash
+attention its tc launches, and adds the CUDA-core kernel's time as
+``previous_ms``) and read just after.  ``previous_ms`` of batched_cg is
+the stream route's time in the same turns; of simplex_proj and rwkv_wkv
+the earlier design's time, measured when ``--previous`` names an earlier
+checkout (its sources are not kept beside the current ones), and null
+otherwise.  The
 line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repo's ``src/`` beside it, the script exits
@@ -164,9 +180,14 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCE = "src/repro_torch/kernels/batched_cg/csrc/batched_cg.cu"
+# the cluster route (every system whose slice fits; the main path) and the
+# stream route (float64 at d = 512), one library
+KERNEL_SOURCE = ("src/repro_torch/kernels/batched_cg/csrc/"
+                 "batched_cg_cluster.cu")
+STREAM_SOURCE = "src/repro_torch/kernels/batched_cg/csrc/batched_cg.cu"
 REPLACES = "src/repro/kernels/batched_cg/kernel.py:30"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                 # H100 SXM float32 outside tensor cores
@@ -174,6 +195,10 @@ RTOL = {"float32": 1e-4, "float64": 1e-10}
 CG_TOL = {"float32": 1e-6, "float64": 1e-12}
 SERVICE_TOL = 1e-3                 # phase 4/7 (float32), see PERF.md
 HYPERGRAD_TOL = 1e-6               # phase 5/6 solve tolerance (float32)
+# phase 3: (B, d); with kernel.layout's rule, in float32 and float64 they
+# take every layout (cluster sizes 1, 2, 4, 8 and the stream route)
+CG_SHAPES = [(3, 7), (5, 130), (64, 96), (64, 512), (16, 300), (8, 400)]
+MAIN_LAYOUT = "C8"                 # d = 512 float32, phases 4-6
 
 SIMPLEX_SOURCE = "src/repro_torch/kernels/simplex_proj/csrc/simplex_proj.cu"
 SIMPLEX_REPLACES = "src/repro/kernels/simplex_proj/kernel.py:25"
@@ -310,31 +335,46 @@ def ptxas_summary(log: str) -> str:
 
 
 def start_previous_build(previous: Path):
-    """Start one ``nvcc`` each (the port's flags) for the simplex_proj and
-    rwkv_wkv libraries of an earlier checkout of the repository, into
+    """Start one ``nvcc`` each (the port's flags) for the batched_cg,
+    simplex_proj and rwkv_wkv libraries of an earlier checkout of the
+    repository (every ``.cu`` of the library's ``csrc/``), into
     ``build/previous/``; returns what :func:`load_previous` waits for."""
     from repro_torch.kernels import _build
     out = ROOT / "build" / "previous"
     out.mkdir(parents=True, exist_ok=True)
     running = {}
-    for name in ("simplex_proj", "rwkv_wkv"):
-        source = previous / "src" / "repro_torch" / "kernels" / name / \
-            "csrc" / f"{name}.cu"
-        check(source.is_file(), f"--previous: {source} not found")
+    for name in ("batched_cg", "simplex_proj", "rwkv_wkv"):
+        csrc = previous / "src" / "repro_torch" / "kernels" / name / "csrc"
+        sources = sorted(csrc.glob("*.cu"))
+        check(bool(sources), f"--previous: no .cu source under {csrc}")
         lib = out / f"lib{name}.so"
         running[name] = (subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+             *map(str, sources)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib,
+            "".join(p.read_text() for p in sources))
     return running
+
+
+class Earlier(NamedTuple):
+    """An earlier checkout's built library and the text of its sources."""
+    lib: ctypes.CDLL
+    source: str
+
+    def arity(self, fn: str) -> int:
+        """How many parameters the source's C function ``fn`` takes."""
+        m = re.search(rf"\b{fn}\s*\(([^)]*)\)", self.source)
+        check(m is not None, f"--previous: {fn} not found in its sources")
+        return len(m.group(1).split(","))
 
 
 def load_previous(running):
     """Wait for the builds of :func:`start_previous_build` and load them."""
     libs = {}
-    for name, (proc, lib) in running.items():
+    for name, (proc, lib, source) in running.items():
         log, _ = proc.communicate(timeout=900)
         check(proc.returncode == 0, f"build of the earlier {name}:\n{log}")
-        libs[name] = ctypes.CDLL(str(lib))
+        libs[name] = Earlier(ctypes.CDLL(str(lib)), source)
     return libs
 
 
@@ -354,11 +394,24 @@ def percentile(vals, q):
 # phases (each returns what main() checks and reports)
 # ---------------------------------------------------------------------------
 
+def cg_counts(reset=False):
+    """The batched-CG op's launch counts: (all, by layout); with ``reset``
+    every count is set to 0 first."""
+    from repro_torch.kernels.batched_cg import ops
+    if reset:
+        ops.LAUNCHES = 0
+        for name in ops.LAUNCHES_BY_LAYOUT:
+            ops.LAUNCHES_BY_LAYOUT[name] = 0
+    return ops.LAUNCHES, {k: v for k, v in ops.LAUNCHES_BY_LAYOUT.items()
+                          if v}
+
+
 def phase_kernel_vs_plain(device, gen, shapes):
-    """Kernel (via the op) against the plain version, forward + backward."""
+    """Kernel (via the op) against the plain version, forward + backward,
+    and the layout each (B, d, dtype) launched (from the op's counts)."""
     import torch
     from repro_torch.kernels.batched_cg import ops, ref
-    worst = {}
+    worst, layouts = {}, {}
     err_main = None
     for B, d in shapes:
         for dtype in (torch.float32, torch.float64):
@@ -367,10 +420,13 @@ def phase_kernel_vs_plain(device, gen, shapes):
             A, b, _, _ = ridge_batch(gen, B, d, 2 * d, dtype, device,
                                      theta_range=(0.1, 0.1))
             At, bt = A.clone().requires_grad_(), b.clone().requires_grad_()
+            before = dict(ops.LAUNCHES_BY_LAYOUT)
             x = ops.batched_cg(At, bt, tol=tol, maxiter=4 * d, device=device)
             gA, gb = torch.autograd.grad((x ** 2).sum(), (At, bt))
-            if device.type == "cuda":
-                torch.cuda.synchronize()
+            sync(device)
+            layouts[(B, d, name)] = "/".join(
+                k for k, v in ops.LAUNCHES_BY_LAYOUT.items()
+                if v != before[k]) or "plain"
             x_ref = ref.batched_cg_ref(A, b, tol=tol, maxiter=4 * d)
             u_ref = ref.batched_cg_ref(A.transpose(1, 2), 2 * x_ref, tol=tol,
                                        maxiter=4 * d)
@@ -382,7 +438,7 @@ def phase_kernel_vs_plain(device, gen, shapes):
             check(max(errs) <= RTOL[name],
                   f"kernel vs plain at B={B} d={d} {name}: rel errors "
                   f"(x, dA, db) = {errs} > {RTOL[name]}")
-    return worst, err_main
+    return worst, err_main, layouts
 
 
 def phase_service_kernel_arm(device, gen, n_req, d, m, max_batch):
@@ -405,10 +461,9 @@ def phase_service_kernel_arm(device, gen, n_req, d, m, max_batch):
     svc.flush()
     dispatches0 = svc.metrics["dispatches"]
 
-    from repro_torch.kernels.batched_cg import ops
     from repro_torch.observability import report, spans
     tracer = spans.configure_tracer(None)   # in-memory request spans
-    ops.LAUNCHES = 0
+    cg_counts(reset=True)
     t_sub, t_done, futs = [0.0] * n_req, [0.0] * n_req, []
     for i in range(n_req):
         t_sub[i] = time.perf_counter()
@@ -417,7 +472,7 @@ def phase_service_kernel_arm(device, gen, n_req, d, m, max_batch):
             lambda f, i=i: t_done.__setitem__(i, time.perf_counter()))
         futs.append(fut)
     svc.flush()
-    launches = ops.LAUNCHES
+    launches, by_layout = cg_counts()
     spans.remove_tracer()
     breakdown = report.summarize(tracer.records())["spans"]
     results = [f.result() for f in futs]
@@ -427,7 +482,8 @@ def phase_service_kernel_arm(device, gen, n_req, d, m, max_batch):
     resid = np.linalg.norm(np.einsum("bij,bj->bi", A_host.astype(np.float64),
                                      x) - b_host, axis=-1)
     relres = resid / np.linalg.norm(b_host, axis=-1)
-    return dict(launches=launches, results=results, relres=relres,
+    return dict(launches=launches, by_layout=by_layout, results=results,
+                relres=relres,
                 dispatches=svc.metrics["dispatches"] - dispatches0,
                 rps=n_req / wall, p50=percentile(lat, 50),
                 p99=percentile(lat, 99), A=A_host, b=b_host,
@@ -438,7 +494,6 @@ def phase_hypergrad(device, gen, n_req, d, m):
     """submit_hypergrad with solve='pallas_cg' against direct root_vjp/lu."""
     import torch
     from repro_torch.core import root_vjp
-    from repro_torch.kernels.batched_cg import ops
     from repro_torch.runtime import SolveService
     f32 = torch.float32
     _, _, X, theta = ridge_batch(gen, n_req, d, m, f32, device)
@@ -454,18 +509,19 @@ def phase_hypergrad(device, gen, n_req, d, m):
         return lambda x, th: Xi.T @ (Xi @ x - yi) / m + th * x
 
     svc = SolveService(device=device, cache=None, max_batch=n_req)
-    ops.LAUNCHES = 0
+    cg_counts(reset=True)
     futs = [svc.submit_hypergrad(F(i), x_star[i], (theta[i],), v[i],
                                  solve="pallas_cg", tol=HYPERGRAD_TOL)
             for i in range(n_req)]
     svc.flush()
-    launches = ops.LAUNCHES
+    launches, by_layout = cg_counts()
     got = torch.stack([f.result().x[0] for f in futs])
     want = torch.stack([root_vjp(F(i), x_star[i], (theta[i],), v[i],
                                  solve="lu")[0] for i in range(n_req)])
     # each request's error, relative to the batch's largest hypergradient
     errs = (got - want).abs() / want.abs().max()
-    return dict(launches=launches, max_rel=float(errs.max()),
+    return dict(launches=launches, by_layout=by_layout,
+                max_rel=float(errs.max()),
                 dispatches=svc.metrics["dispatches"])
 
 
@@ -474,7 +530,6 @@ def phase_implicit_diff(device, gen, d, m):
     import torch
     from repro_torch.core import DenseOperator, custom_root
     from repro_torch.core import linear_solve
-    from repro_torch.kernels.batched_cg import ops
     f32 = torch.float32
     X = torch.randn(m, d, generator=gen, device=device, dtype=f32)
     y = torch.randn(m, generator=gen, device=device, dtype=f32)
@@ -491,11 +546,12 @@ def phase_implicit_diff(device, gen, d, m):
 
     theta = torch.tensor(0.05, device=device, dtype=f32, requires_grad=True)
     yt = y.clone().requires_grad_()
-    ops.LAUNCHES = 0
+    cg_counts(reset=True)
     x = ridge(None, theta, yt)
-    fwd = ops.LAUNCHES
+    fwd, fwd_layout = cg_counts()
+    cg_counts(reset=True)
     g_theta, g_y = torch.autograd.grad(x.sum(), (theta, yt))
-    bwd = ops.LAUNCHES - fwd
+    bwd, bwd_layout = cg_counts()
     # closed form in float64: dL/dθ = -1ᵀA⁻¹x*, dL/dy = X A⁻¹ 1 / m
     Xd, yd = X.double(), y.double()
     H = Xd.T @ Xd / m + 0.05 * torch.eye(d, device=device,
@@ -505,7 +561,8 @@ def phase_implicit_diff(device, gen, d, m):
                                          dtype=torch.float64))
     want_theta = -(w @ xs)
     want_y = Xd @ w / m
-    return dict(fwd=fwd, bwd=bwd,
+    return dict(fwd=fwd, bwd=bwd, fwd_layout=fwd_layout,
+                bwd_layout=bwd_layout,
                 err_theta=abs(float(g_theta) - float(want_theta))
                 / abs(float(want_theta)),
                 err_y=rel(g_y, want_y), err_x=rel(x, xs))
@@ -513,10 +570,9 @@ def phase_implicit_diff(device, gen, d, m):
 
 def phase_cache_arm(device, A_host, b_host, n_req):
     """Default service (cache on -> dense_gmres): cold then warm wave."""
-    from repro_torch.kernels.batched_cg import ops
     from repro_torch.runtime import SolveService
     svc = SolveService(device=device, tol=SERVICE_TOL, max_batch=n_req)
-    ops.LAUNCHES = 0
+    cg_counts(reset=True)
     waves = {}
     for wave in ("cold", "warm"):
         t0 = time.perf_counter()
@@ -526,7 +582,7 @@ def phase_cache_arm(device, A_host, b_host, n_req):
         results = [f.result() for f in futs]
         waves[wave] = dict(results=results, s=time.perf_counter() - t0)
     keys = {k.solver for k, _ in svc._compiled}
-    return dict(waves=waves, solvers=keys, launches=ops.LAUNCHES,
+    return dict(waves=waves, solvers=keys, launches=cg_counts()[0],
                 hit_rate=svc.hit_rate)
 
 
@@ -572,6 +628,34 @@ def graph_time_ms(fn, reps, replays=5):
     return start.elapsed_time(end) / (reps * replays)
 
 
+def profiled_device_ms(fn, reps):
+    """Device time of one call of ``fn``: the time during which the card
+    runs any of its kernels or copies under ``torch.profiler`` (the union
+    of their intervals, so that kernels on side streams are not counted
+    twice) over ``reps`` calls, divided by ``reps``; gaps for host work and
+    syncs are left out.  For a call that a CUDA graph cannot capture.
+    None when the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy / 1e3 / reps if busy > 0 else None
+
+
 def in_turns(kernel_fn, earlier_fn, reps):
     """Device times of ``kernel_fn`` twice and, when given, of
     ``earlier_fn`` (the earlier design) around them: earlier, kernel,
@@ -603,8 +687,28 @@ def timing(kernel_ms, earlier_ms, earlier_diff):
                 previous_turns=earlier_ms, previous_diff=earlier_diff)
 
 
-def phase_times(device, A_np, b_np, tol):
-    """Kernel, plain and library times at (64, 512) float32, and the bound."""
+def phase_times(device, A_np, b_np, tol, previous=None):
+    """batched_cg at (64, 512) float32, and its bound.
+
+    Device time (launches replayed from a CUDA graph, ``graph_time_ms``)
+    of the cluster route, twice, in turns with the stream route and, with
+    ``previous`` (the earlier checkout's library, see ``--previous``), its
+    ``batched_cg_f32``: earlier, stream, cluster, cluster, stream, earlier;
+    and the largest differences of their x from the cluster route's.  The
+    cluster route at ``maxiter=0`` (its load of A, and x = 0 written: what
+    an instance costs besides its iterations) and at tol=0, maxiter=10
+    (every instance runs 10 iterations, so the batch takes ⌈B/clusters⌉
+    equal waves and an iteration costs the difference over 10 × waves),
+    by device time.  A call through ``kernel.launch`` by CUDA events.
+    ``torch.linalg.solve_ex`` by device time — the sum of its kernels'
+    times under ``torch.profiler`` (a CUDA graph cannot capture it: the
+    capture is invalidated) — and by CUDA events, and ``torch.linalg.solve``
+    by CUDA events, yardsticks only: the port never calls them.  The plain
+    version by CUDA events: its loop reads the card on every iteration
+    (``bool(any(...))``), a host sync by construction, so it cannot be
+    captured in a graph.  The most clusters resident at once, and the CG
+    iterations of each instance.
+    """
     import torch
     from repro_torch.core import DenseOperator, linear_solve
     from repro_torch.kernels.batched_cg import kernel, ref
@@ -612,11 +716,48 @@ def phase_times(device, A_np, b_np, tol):
     b = torch.from_numpy(b_np).to(device)
     B, d = b.shape
     maxiter = 1000                          # the service's default
-    ms = cuda_time_ms(lambda: kernel.launch(A, b, tol=tol, maxiter=maxiter),
-                      reps=20)
+
+    def cluster():
+        return kernel.launch(A, b, tol=tol, maxiter=maxiter)
+
+    def stream():
+        return kernel.launch(A, b, tol=tol, maxiter=maxiter, layout="stream")
+
+    turns = [stream]
+    x_prev = torch.empty_like(b)
+    if previous is not None:       # the stream route's C interface
+        fn = earlier_function(previous.lib, "batched_cg_f32", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p])
+
+        def earlier():
+            fn(A.data_ptr(), b.data_ptr(), x_prev.data_ptr(), B, d, tol,
+               maxiter, 0, torch.cuda.current_stream().cuda_stream)
+        turns = [earlier, stream]
+    first = [graph_time_ms(f, 20) for f in turns]
+    cluster_ms = [graph_time_ms(cluster, 20) for _ in range(2)]
+    last = [graph_time_ms(f, 20) for f in reversed(turns)][::-1]
+    load_ms = graph_time_ms(
+        lambda: kernel.launch(A, b, tol=tol, maxiter=0), 20)
+    ten_ms = graph_time_ms(
+        lambda: kernel.launch(A, b, tol=0.0, maxiter=10), 20)
+    clusters = kernel.max_active_clusters(d, A.dtype)
+    waves = -(-B // clusters)
+    x = cluster()
+    diff = {"stream": float((stream() - x).abs().max())}
+    if previous is not None:
+        earlier()
+        diff["earlier"] = float((x_prev - x).abs().max())
+    call_ms = cuda_time_ms(cluster, reps=20)
     plain_ms = cuda_time_ms(
         lambda: ref.batched_cg_ref(A, b, tol=tol, maxiter=maxiter), reps=5)
-    library_ms = cuda_time_ms(lambda: torch.linalg.solve(A, b), reps=5)
+    solve_ex_ms = profiled_device_ms(lambda: torch.linalg.solve_ex(A, b), 5)
+    solve_ex_call_ms = cuda_time_ms(lambda: torch.linalg.solve_ex(A, b), 5)
+    library_by = "device time (its kernels under torch.profiler)"
+    if solve_ex_ms is None:        # the profiler saw no device time
+        solve_ex_ms, library_by = solve_ex_call_ms, "CUDA events"
+    solve_ms = cuda_time_ms(lambda: torch.linalg.solve(A, b), reps=5)
     _, info = linear_solve.solve_cg(DenseOperator(A, positive_definite=True),
                                     b, tol=tol, maxiter=maxiter,
                                     batch_ndim=1, return_info=True)
@@ -625,11 +766,53 @@ def phase_times(device, A_np, b_np, tol):
     flops = 2 * sum(iters) * d * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / FP32_FLOPS * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                iters=iters, bound_ms=max(t_bytes, t_flops),
+    ms = sum(cluster_ms) / 2
+    stream_ms = [first[-1], last[-1]]
+    return dict(ms=ms, cluster_ms=cluster_ms, stream_ms=stream_ms,
+                previous_ms=sum(stream_ms) / 2,
+                earlier_ms=[first[0], last[0]] if previous else [],
+                diff=diff, load_ms=load_ms, ten_ms=ten_ms, waves=waves,
+                iter_us=(ten_ms - load_ms) / (10 * waves) * 1e3,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=solve_ex_ms,
+                library_by=library_by, solve_ex_call_ms=solve_ex_call_ms,
+                solve_ms=solve_ms, layout=kernel.layout(d, A.dtype),
+                clusters=clusters, iters=iters,
+                bound_ms=max(t_bytes, t_flops),
                 bound_by="bytes" if t_bytes >= t_flops else "operations",
                 t_bytes=t_bytes, t_flops=t_flops,
-                streamed_gb_s=sum(iters) / B * nbytes / (ms * 1e-3) / 1e9)
+                read_gb_s=nbytes / (ms * 1e-3) / 1e9,
+                streamed_gb_s=sum(iters) / B * nbytes
+                / (sum(stream_ms) / 2 * 1e-3) / 1e9)
+
+
+def say_times(t, tol):
+    """Phase 8's numbers at one tolerance."""
+    earlier = "earlier checkout not measured (no --previous)"
+    if t["earlier_ms"]:
+        earlier = ("earlier checkout's batched_cg (--previous) " + " / ".join(
+            f"{ms:.4f}" for ms in t["earlier_ms"]) + " ms in turns ("
+            f"{sum(t['earlier_ms']) / 2 / t['ms']:.2f}x), max |Δx| "
+            f"{t['diff']['earlier']:.2e}")
+    return (f"tol={tol}: cluster route [{t['layout']}] "
+            f"{t['cluster_ms'][0]:.4f} / {t['cluster_ms'][1]:.4f} ms of "
+            f"device time ({t['bound_ms'] / t['ms'] * 100:.2f} % of the "
+            f"bound; A read once at {t['read_gb_s']:.1f} GB/s), "
+            f"{t['load_ms']:.4f} ms at maxiter=0 (the load alone), "
+            f"{t['ten_ms']:.4f} ms at tol=0, maxiter=10 (an iteration "
+            f"{t['iter_us']:.3f} µs over {t['waves']} waves), "
+            f"{t['call_ms']:.4f} ms a call through kernel.launch, "
+            f"{t['clusters']} clusters resident at once; stream route "
+            f"{t['stream_ms'][0]:.4f} / {t['stream_ms'][1]:.4f} ms in turns "
+            f"({t['previous_ms'] / t['ms']:.2f}x the cluster route, A "
+            f"streamed at {t['streamed_gb_s']:.1f} GB/s), max |Δx| "
+            f"{t['diff']['stream']:.2e}; {earlier}; CG iterations "
+            f"sum={sum(t['iters'])} max={max(t['iters'])}; bound "
+            f"{t['bound_ms']:.4f} ms (bytes {t['t_bytes']:.4f} ms, operations"
+            f" {t['t_flops']:.4f} ms); plain {t['plain_ms']:.4f} ms (CUDA "
+            f"events: a host read every iteration); torch.linalg.solve_ex "
+            f"{t['library_ms']:.4f} ms by {t['library_by']}, "
+            f"{t['solve_ex_call_ms']:.4f} ms by CUDA events;"
+            f" torch.linalg.solve {t['solve_ms']:.4f} ms (CUDA events)")
 
 
 def simplex_path(d):
@@ -876,13 +1059,18 @@ def phase_simplex_times(device, gen, previous=None):
     R, d = 50000, 100
     y = 3 * torch.randn(R, d, generator=gen, device=device)
     earlier, x_prev = None, torch.empty_like(y)
-    if previous is not None:       # its C interface: y, x, R, d, scale
-        fn = earlier_function(previous, "simplex_proj_f32", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_double, ctypes.c_void_p])
+    # its C interface: y, x, R, d, scale (PR 12's design), or y, x, R, d,
+    # lanes, values, scale (the layout's, from PR 17 on)
+    layout = () if previous is None or \
+        previous.arity("simplex_proj_f32") == 6 else kernel.layout(d)
+    if previous is not None:
+        fn = earlier_function(previous.lib, "simplex_proj_f32", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_int] * len(layout) + [ctypes.c_double,
+                                              ctypes.c_void_p])
 
         def earlier():
-            fn(y.data_ptr(), x_prev.data_ptr(), R, d, 1.0,
+            fn(y.data_ptr(), x_prev.data_ptr(), R, d, *layout, 1.0,
                torch.cuda.current_stream().cuda_stream)
     kernel_ms, earlier_ms = in_turns(lambda: kernel.launch(y), earlier, 50)
     ties = tie_rows(gen, R, d, 1.0, torch.float32, device)
@@ -1417,7 +1605,7 @@ def wkv_times(device, gen, previous=None):
     o_prev = torch.empty_like(r)
     s_prev = torch.empty(B, H, N, N, device=device)
     if previous is not None:       # the same C interface as the kernel's
-        fn = earlier_function(previous, "rwkv_wkv_bf16",
+        fn = earlier_function(previous.lib, "rwkv_wkv_bf16",
                               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                               + [ctypes.c_void_p])
 
@@ -1489,9 +1677,9 @@ def main(argv=None) -> None:
                     help="seed of every random problem the run draws")
     ap.add_argument("--previous", type=Path, default=None,
                     help="an earlier checkout of the repository (e.g. "
-                         "unpacked by git archive): its simplex_proj and "
-                         "rwkv_wkv kernels are built and timed in turns "
-                         "with this checkout's (previous_ms)")
+                         "unpacked by git archive): its batched_cg, "
+                         "simplex_proj and rwkv_wkv kernels are built and "
+                         "timed in turns with this checkout's")
     args = ap.parse_args(argv)
 
     import torch
@@ -1523,7 +1711,8 @@ def main(argv=None) -> None:
     _build.build()
     previous = {} if running is None else load_previous(running)
     built_s = time.perf_counter() - t0
-    for kname, source in (("batched_cg", KERNEL_SOURCE),
+    for kname, source in (("batched_cg", f"{KERNEL_SOURCE} and "
+                                         f"{STREAM_SOURCE}"),
                           ("simplex_proj", SIMPLEX_SOURCE),
                           ("flash_attention",
                            f"{FA_SOURCE} and {FA_SIMT_SOURCE}"),
@@ -1532,14 +1721,23 @@ def main(argv=None) -> None:
         say("2 build", f"{kname} from {source} (all four in {built_s:.1f} s,"
             f" 0 if cached): {ptx}")
     if previous:
-        say("2 build", f"earlier simplex_proj and rwkv_wkv from "
+        say("2 build", f"earlier batched_cg, simplex_proj and rwkv_wkv from "
             f"{args.previous}")
 
     # 3. kernel against plain
-    worst, err_main = phase_kernel_vs_plain(
-        device, gen, [(3, 7), (5, 130), (64, 96), (64, 512)])
-    say("3 kernel vs plain", "max rel err (x, dA, db) per shape: "
-        + ", ".join(f"{B}x{d} {n}={e:.2e}" for (B, d, n), e in worst.items()))
+    from repro_torch.kernels.batched_cg import kernel as cg_kernel
+    worst, err_main, layouts3 = phase_kernel_vs_plain(device, gen, CG_SHAPES)
+    for key, took in layouts3.items():
+        want = cg_kernel.layout(key[1], getattr(torch, key[2]))
+        check(took == want, f"phase 3: batched_cg at {key} launched {took}, "
+              f"the rule gives {want}")
+    check(set(layouts3.values()) == set(cg_kernel.LAYOUTS),
+          f"phase 3: the shapes took the layouts "
+          f"{sorted(set(layouts3.values()))}, not every one of "
+          f"{list(cg_kernel.LAYOUTS)}")
+    say("3 kernel vs plain", "[layout] max rel err (x, dA, db) per shape: "
+        + ", ".join(f"{B}x{d} {n} [{layouts3[(B, d, n)]}]={e:.2e}"
+                    for (B, d, n), e in worst.items()))
 
     # 4. service, kernel arm
     s4 = phase_service_kernel_arm(device, gen, n_req=256, d=512, m=1024,
@@ -1548,6 +1746,8 @@ def main(argv=None) -> None:
           "expected 4 buckets of 64")
     check(s4["launches"] == 4, f"phase 4: {s4['launches']} kernel launches,"
           " expected 4")
+    check(s4["by_layout"] == {MAIN_LAYOUT: 4}, f"phase 4: launches by "
+          f"layout {s4['by_layout']}, expected all 4 on {MAIN_LAYOUT}")
     check(all(bool(r.info.converged) for r in s4["results"]),
           "phase 4: a request did not converge")
     check(float(s4["relres"].max()) <= SERVICE_TOL,
@@ -1555,24 +1755,33 @@ def main(argv=None) -> None:
           f"{SERVICE_TOL}")
     say("4 service/kernel", f"256 requests d=512 float32 tol={SERVICE_TOL}: "
         f"dispatches={s4['dispatches']} launches={s4['launches']} "
-        f"max |Ax-b|/|b|={s4['relres'].max():.3e}; all converged")
+        f"{s4['by_layout']} max |Ax-b|/|b|={s4['relres'].max():.3e}; all "
+        "converged")
 
     # 5. service, hypergradient arm
     s5 = phase_hypergrad(device, gen, n_req=64, d=512, m=1024)
     check(s5["launches"] >= 1, "phase 5: the kernel was not launched")
+    check(s5["by_layout"] == {MAIN_LAYOUT: s5["launches"]}, f"phase 5: "
+          f"launches by layout {s5['by_layout']}, expected all on "
+          f"{MAIN_LAYOUT}")
     check(s5["max_rel"] <= 1e-3, f"phase 5: hypergradient rel err "
           f"{s5['max_rel']:.3e} > 1e-3 against root_vjp(solve='lu')")
     say("5 service/hypergrad", f"64 submit_hypergrad d=512 pallas_cg: "
         f"dispatches={s5['dispatches']} launches={s5['launches']} "
-        f"max rel err vs root_vjp(lu)={s5['max_rel']:.3e}")
+        f"{s5['by_layout']} max rel err vs root_vjp(lu)={s5['max_rel']:.3e}")
 
     # 6. implicit diff
     s6 = phase_implicit_diff(device, gen, d=512, m=1024)
     check(s6["bwd"] >= 1, "phase 6: the backward did not launch the kernel")
+    check(s6["fwd_layout"] == {MAIN_LAYOUT: s6["fwd"]} and s6["fwd"] >= 1
+          and s6["bwd_layout"] == {MAIN_LAYOUT: s6["bwd"]},
+          f"phase 6: launches by layout forward {s6['fwd_layout']}, "
+          f"backward {s6['bwd_layout']}, expected all on {MAIN_LAYOUT}")
     check(max(s6["err_theta"], s6["err_y"], s6["err_x"]) <= 1e-3,
           f"phase 6: errors vs closed form {s6}")
     say("6 implicit diff", f"custom_root(pallas_cg) d=512: launches "
-        f"forward={s6['fwd']} backward={s6['bwd']}; rel err vs closed form "
+        f"forward={s6['fwd']} {s6['fwd_layout']} backward={s6['bwd']} "
+        f"{s6['bwd_layout']} (the transposed load); rel err vs closed form "
         f"x*={s6['err_x']:.2e} dθ={s6['err_theta']:.2e} "
         f"dy={s6['err_y']:.2e}")
 
@@ -1594,19 +1803,15 @@ def main(argv=None) -> None:
         f"launches={s7['launches']}")
 
     # 8. times
-    t = phase_times(device, s4["A"][:64], s4["b"][:64], SERVICE_TOL)
-    t6 = phase_times(device, s4["A"][:64], s4["b"][:64], HYPERGRAD_TOL)
-    say("8 times", f"[{card}] batched_cg (64, 512) float32 tol={SERVICE_TOL}:"
-        f" kernel {t['ms']:.4f} ms, CG iterations sum={sum(t['iters'])} "
-        f"max={max(t['iters'])}, bound {t['bound_ms']:.4f} ms "
-        f"(bytes {t['t_bytes']:.4f} ms, operations {t['t_flops']:.4f} ms), "
-        f"A streamed at {t['streamed_gb_s']:.1f} GB/s; plain "
-        f"{t['plain_ms']:.4f} ms; torch.linalg.solve {t['library_ms']:.4f} "
-        f"ms | tol={HYPERGRAD_TOL}: kernel {t6['ms']:.4f} ms, iterations "
-        f"sum={sum(t6['iters'])}, bound {t6['bound_ms']:.4f} ms, plain "
-        f"{t6['plain_ms']:.4f} ms | service phase 4: {s4['rps']:.1f} req/s,"
-        f" p50 {s4['p50'] * 1e3:.2f} ms, p99 {s4['p99'] * 1e3:.2f} ms; "
-        "span p50/p99 ms: " + ", ".join(
+    t = phase_times(device, s4["A"][:64], s4["b"][:64], SERVICE_TOL,
+                    previous.get("batched_cg"))
+    t6 = phase_times(device, s4["A"][:64], s4["b"][:64], HYPERGRAD_TOL,
+                     previous.get("batched_cg"))
+    say("8 times", f"[{card}] batched_cg (64, 512) float32: "
+        + say_times(t, SERVICE_TOL) + " | " + say_times(t6, HYPERGRAD_TOL)
+        + f" | service phase 4: {s4['rps']:.1f} req/s, p50 "
+        f"{s4['p50'] * 1e3:.2f} ms, p99 {s4['p99'] * 1e3:.2f} ms; span "
+        "p50/p99 ms: " + ", ".join(
             f"{k} {v['p50_ms']:.2f}/{v['p99_ms']:.2f}"
             for k, v in s4["breakdown"].items()))
 
@@ -1759,7 +1964,7 @@ def main(argv=None) -> None:
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": err_main, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"]}, {
+        "library_ms": t["library_ms"], "previous_ms": t["previous_ms"]}, {
         "name": "simplex_proj", "route": "cuda", "source": SIMPLEX_SOURCE,
         "replaces": SIMPLEX_REPLACES, "launches": s10["launches"],
         "max_abs_err": err9, "ms": t11["ms"], "plain_ms": t11["plain_ms"],

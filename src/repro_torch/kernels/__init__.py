@@ -2,7 +2,9 @@
 
 batched_cg/   — fused batched conjugate gradient over dense small SPD
                 systems (d ≤ 512), the implicit-diff backward hot path; CUDA
-                C++ for sm_90a, one thread block per instance, with an
+                C++ for sm_90a, one thread-block cluster per instance with
+                A in its shared memory (one block per instance, A read from
+                device memory, where no cluster holds it), with an
                 implicit-diff backward (counterpart of the Pallas kernel in
                 ``repro/kernels/batched_cg``)
 simplex_proj/ — row-wise projection onto the scale-simplex by float32

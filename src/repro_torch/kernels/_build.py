@@ -46,7 +46,8 @@ class Kernel(NamedTuple):
 
 
 KERNELS = {
-    "batched_cg": Kernel(_HERE / "batched_cg" / "csrc", ("batched_cg.cu",)),
+    "batched_cg": Kernel(_HERE / "batched_cg" / "csrc",
+                         ("batched_cg.cu", "batched_cg_cluster.cu")),
     "simplex_proj": Kernel(_HERE / "simplex_proj" / "csrc",
                            ("simplex_proj.cu",)),
     "flash_attention": Kernel(_HERE / "flash_attention" / "csrc",

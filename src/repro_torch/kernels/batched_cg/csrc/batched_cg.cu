@@ -1,14 +1,19 @@
-// Batched conjugate gradient for Hopper (sm_90a): one thread block per
-// instance of a batch of dense SPD systems A[i] x[i] = b[i], d <= 512.
+// Batched conjugate gradient for Hopper (sm_90a), the stream route: one
+// thread block per instance of a batch of dense SPD systems
+// A[i] x[i] = b[i], d <= 512, reading A from device memory on every
+// iteration.
 //
 // Replaces repro/kernels/batched_cg/kernel.py::_batched_cg_kernel, the Pallas
-// TPU kernel behind the `pallas_cg` solver.  Same algorithm and guards as
-// repro_torch/kernels/batched_cg/ref.py: CG from x0 = 0, alpha = 0 where
-// p'Ap = 0, beta = 0 where rs = 0, an instance stops once
-// rs <= max(tol^2 |b|^2, 1e-30) or after maxiter steps.  The Pallas kernel
-// keeps a converged row frozen until its whole block is done; here each
-// instance owns its block and simply leaves the loop, which gives the same x
-// because a frozen row's update is a no-op.
+// TPU kernel behind the `pallas_cg` solver, for the systems whose slice no
+// thread-block cluster holds (kernel.py::layout: float64 at d = 512).  Every
+// other system takes the cluster route, batched_cg_cluster.cu, which keeps A
+// in the shared memory of a cluster and reads it from device memory once.
+// Same algorithm and guards as repro_torch/kernels/batched_cg/ref.py: CG from
+// x0 = 0, alpha = 0 where p'Ap = 0, beta = 0 where rs = 0, an instance stops
+// once rs <= max(tol^2 |b|^2, 1e-30) or after maxiter steps.  The Pallas
+// kernel keeps a converged row frozen until its whole block is done; here
+// each instance owns its block and simply leaves the loop, which gives the
+// same x because a frozen row's update is a no-op.
 //
 // Layout: grid = B, 256 threads.  x, r, p and Ap live in shared memory
 // (4 d sizeof(T): at most 16 KB in f64 at d = 512).  A is read from device
@@ -20,10 +25,10 @@
 // computes in the same order, so the loop condition is uniform in the block.
 //
 // What bounds it on the H100: every iteration streams B d^2 sizeof(T) bytes
-// of A (64 MiB at B = 64, d = 512, f32).  That is more than the 50 MB L2, so
-// it comes from HBM on every iteration, and only B of the 132 SMs have work.
-// Both are for later work to attack (for example, by splitting an instance
-// across a thread-block cluster that keeps A in distributed shared memory).
+// of A (128 MiB at B = 64, d = 512, f64).  That is more than the 50 MB L2,
+// so it comes from HBM on every iteration, and only B of the 132 SMs have
+// work.  It stays for what the cluster route cannot hold; chip_smoke.py
+// times it beside the cluster route at (64, 512) float32.
 //
 // C interface (bound with ctypes): batched_cg_f32 / batched_cg_f64 launch on
 // the given stream, allocate nothing, and return cudaGetLastError().

@@ -1,18 +1,24 @@
 """Public batched-CG op with an implicit-differentiation backward.
 
-Counterpart of ``repro/kernels/batched_cg/ops.py``.  Forward: the
-hand-written Hopper kernel (``kernel.py`` / ``csrc/batched_cg.cu``) solves
-the whole ``(B, d, d)`` batch of SPD systems when the tensors are on a
-CUDA device, and the plain PyTorch version (``ref.py``) when they are on
-the CPU — that choice is made by the tensors' device alone; on a CUDA
-tensor the op launches the kernel or raises.  Backward: x = A⁻¹b is
-implicitly defined by Ax − b = 0, so
+Counterpart of ``repro/kernels/batched_cg/ops.py``.  Forward: a
+hand-written Hopper kernel solves the whole ``(B, d, d)`` batch of SPD
+systems when the tensors are on a CUDA device, and the plain PyTorch
+version (``ref.py``) when they are on the CPU — that choice is made by the
+tensors' device alone; on a CUDA tensor the op launches a kernel or
+raises.  ``kernel.layout(d, dtype)`` picks the kernel before the launch:
+the cluster route (``csrc/batched_cg_cluster.cu``, layouts ``"C1"`` …
+``"C8"``: A held in the shared memory of a thread-block cluster) for
+every system whose slice fits, the stream route (``csrc/batched_cg.cu``,
+``"stream"``: A read from device memory every iteration) for the rest
+(float64 at d = 512).  Backward: x = A⁻¹b is implicitly defined by
+Ax − b = 0, so
 
     u  = A⁻ᵀ g          (one more batched solve, the same kernel on Aᵀ)
     ∂b = u,   ∂A = −u xᵀ
 
-``LAUNCHES`` counts every kernel launch, forward and backward (a plain
-int, for showing that a run went through the kernel).
+``LAUNCHES`` counts every kernel launch, forward and backward, and
+``LAUNCHES_BY_LAYOUT`` splits them by layout (plain ints, for showing
+that a run went through the kernels).
 
 The JAX op's ``block_b``, ``interpret`` and ``pad_lanes`` arguments are
 TPU tile parameters (VMEM tile height, Pallas interpret mode, 128-lane
@@ -30,19 +36,22 @@ from repro_torch.kernels.batched_cg import kernel
 from repro_torch.kernels.batched_cg.ref import batched_cg_ref
 
 LAUNCHES = 0
+LAUNCHES_BY_LAYOUT = {name: 0 for name in kernel.LAYOUTS}
 
 
 def _solve(A: torch.Tensor, b: torch.Tensor, tol: float, maxiter: int,
            transpose: bool = False) -> torch.Tensor:
-    """One batched solve: the kernel on CUDA tensors, ``ref`` on CPU ones."""
+    """One batched solve: a kernel on CUDA tensors, ``ref`` on CPU ones."""
     global LAUNCHES
     if A.device.type == "cuda":
         dtype = torch.promote_types(torch.promote_types(A.dtype, b.dtype),
                                     torch.float32)
+        name = kernel.layout(A.shape[-1], dtype)
         x = kernel.launch(A.to(dtype).contiguous(),
                           b.to(dtype).contiguous(), tol=tol,
-                          maxiter=maxiter, transpose=transpose)
+                          maxiter=maxiter, transpose=transpose, layout=name)
         LAUNCHES += 1
+        LAUNCHES_BY_LAYOUT[name] += 1
         return x.to(b.dtype)
     if A.device.type == "cpu":
         return batched_cg_ref(A.transpose(1, 2) if transpose else A, b,
