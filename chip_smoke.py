@@ -6,7 +6,10 @@
 Drives the port's main paths on the GPU and stops at the first failure
 with a non-zero exit: the solve service answering dense solves and
 implicit hypergradients, and ``custom_root`` implicit differentiation,
-through the hand-written batched-CG kernels (phases 3-8); the paper's §4.1
+through the hand-written batched-CG kernels (phases 3-8, and 17 and 19:
+batches of hypergradients under ``torch.func.vmap``, the service's
+approximate arm; phases 18 and 20 run the DEQ layer and the other solvers
+and operators, which launch no kernel); the paper's §4.1
 multiclass-SVM hyper-parameter optimisation — ``solve_bilevel`` over a
 ``ProjectedGradient`` inner solver — through the hand-written
 simplex-projection kernel (phases 9-11); and LM serving of ``qwen1.5-4b``
@@ -151,13 +154,55 @@ prints one line:
      ``torch.profiler`` (device time of the port's kernels, of the matrix
      products and of the rest; the device busy share of the step), and
      the decode tokens/s of the launcher and the engine, for both models.
+ 17. a batch of hypergradients as one solve: 64 ridge problems of phase
+     4's recipe (Xᵢ (1024, 512), θᵢ log-uniform in [1e-2, 1], yᵢ), float32,
+     a ``custom_root`` ridge solver (forward ``torch.linalg.solve``, no
+     kernel) with ``solve="pallas_cg"``: (a) ``torch.func.vmap`` of
+     ``torch.func.grad`` of Σx*² in θ and (b) ``vmap`` of ``torch.func.jvp``
+     in θ each launch the kernel exactly once for the 64, on C8, where a
+     Python loop launches it 64 times; values within 1e-4 of the loop and
+     1e-3 of the float64 closed form (dx*/dθ = −A⁻¹x*), each limit failed
+     by the loop's (closed form's) values shifted by one instance; (c)
+     ``vmap`` over ``GradientDescent(solve="pallas_cg").run()`` (step 1/L,
+     tol 1e-4 on ‖Δx‖): every instance converged, per-instance iterations
+     within 1 of a loop of 64 runs, and ``vmap(grad)`` through it one C8
+     launch; wall times of the batched calls and the loops printed;
+ 18. the DEQ layer at ``qwen1.5-4b``'s width (d 2560, d_ff 6912): the
+     cell of ``examples/deq_block.py`` with the norm per token, weights
+     × 3/√fan-in (the measured contraction factor, by power iteration on
+     the cell's Jacobian at z*, printed and < 1), x (8192, 2560) the tokens
+     of a (4, 2048) batch, float32; ``make_deq_block``'s Anderson forward to
+     ‖T(z) − z‖ ≤ 5e-3 over all tokens (converged); the gradient of Σz*²
+     in W₁, W₂ for ``bwd_solve`` ∈ {normal_cg, neumann, gmres, bicgstab}
+     (tol 1e-5) within 1e-3 of normal_cg's, and for ``backward`` ∈
+     {neumann_k (k = 8), one_step, jacobian_free} with its
+     ``hypergrad_error_estimate`` and cosine to the exact gradient; at 512
+     tokens the implicit gradient within 1e-3 of a 100-layer unrolled
+     backprop; jacobian_free's gradient is the control of both limits;
+ 19. the service's approximate arm: A = I − ρS (‖S‖₂ = 1, d = 512, ρ ∈
+     {0.5, 0.9}), 64 ``submit_hypergrad`` per (ρ, mode), mode ∈ {exact
+     (``solve="pallas_cg"``), one_step, neumann_k (k = 8), jacobian_free},
+     on a default service (cache on): each approximate result within 1e-4
+     of its polynomial in float64 (the polynomial one term off is the
+     control), each estimate within 1e-3 of ‖v − Aᵀu‖/‖v‖ in float64 (the
+     same with the requests' u shifted by one is the control), the
+     estimates at ρ = 0.9 at or above those at ρ = 0.5, the exact buckets
+     within 1e-3 of ``solve="lu"`` on 2 C8 launches, and the approximate
+     requests leaving the cache's size as it was;
+ 20. the new solvers and operators at (64, 512) float32: ``bicgstab`` and
+     ``gmres`` on I + 0.5·G/√d, ``neumann`` on I − 0.5·M/‖M‖₂, ``cg`` with
+     ``precond="block_jacobi"`` on a ``BlockDiagonal`` of 8 SPD blocks of 64
+     (one iteration): each converged at tol 1e-4 and its float64 residual
+     within 2e-4 (a solution shifted by one instance is the control); the
+     matvecs of a ``ComposedOperator`` and of a ``RaveledOperator`` within
+     1e-5 of their materialized matrices (the transpose is the control).
 
 Kernel launches are counted by each kernel's ``ops.LAUNCHES`` (and, for
 batched_cg, ``ops.LAUNCHES_BY_LAYOUT``; for flash attention,
 ``ops.LAUNCHES_BY_ROUTE``), set to 0 just before each main-path phase
-(4-7 for batched_cg, phase 6's forward and backward each on their own,
-10 for simplex_proj, each kernel prefill of 14 for flash_attention and
-of 15 for rwkv_wkv; the JSON line reports the bfloat16 one, for flash
+(4-7, 17's batched derivatives and 19's exact buckets for batched_cg,
+phase 6's forward and backward each on their own, 10 for simplex_proj,
+each kernel prefill of 14 for flash_attention and of 15 for rwkv_wkv; the JSON line reports the bfloat16 one, for flash
 attention its tc launches, and adds the CUDA-core kernel's time as
 ``previous_ms``) and read just after.  ``previous_ms`` of batched_cg is
 the stream route's time in the same turns; of simplex_proj and rwkv_wkv
@@ -261,6 +306,24 @@ LM_DECODE_SHALLOW_RTOL = 1e-5
 LM_RTOL = {"qwen1.5-4b": 5e-2, "rwkv6-3b": 8e-2}
 ENGINE = dict(num_slots=8, requests=16, prompt=(8, 32), new_tokens=16,
               max_len=64)
+
+# phases 17-20 (limits and their readings: PERF.md)
+VMAP_RTOL = 1e-4                   # phase 17: vmap against the loop
+CLOSED_RTOL = 1e-3                 # phase 17: against the float64 closed form
+RUN_TOL = 1e-4                     # phase 17 (c): GD's ‖Δx‖ tol, float32
+DEQ = dict(d=2560, d_ff=6912, tokens=4 * 2048, unroll_tokens=512,
+           depth=100, scale=3.0)   # qwen1.5-4b's width; (4, 2048) tokens
+DEQ_FWD = dict(fwd_iters=100, fwd_tol=5e-3)   # ‖T(z) − z‖ over all tokens
+DEQ_LINSOLVE = dict(tol=1e-5, maxiter=200)    # the exact backward solvers
+DEQ_AGREE_RTOL = 1e-3              # exact solvers against normal_cg
+DEQ_UNROLL_RTOL = 1e-3             # implicit against 100 unrolled layers
+APPROX = dict(d=512, rhos=(0.5, 0.9), n=64, k=8)
+POLY_RTOL = 1e-4                   # phase 19: against the float64 polynomial
+EXACT_RTOL = 1e-3                  # phase 19: exact bucket against lu
+EST_RTOL = 1e-3                    # phase 19: estimate against float64
+SOLVERS_TOL = 1e-4                 # phase 20: the solvers' tol, float32;
+#                                    float64 true residual held to 2x it
+MATVEC_RTOL = 1e-5                 # phase 20: operator matvecs
 
 
 def fail(msg: str) -> None:
@@ -1647,6 +1710,401 @@ def previous_line(t):
         "from the kernel " + " / ".join(f"{e:.2e}" for e in diff))
 
 
+# ---------------------------------------------------------------------------
+# phases 17-20: the rest of the single-device implicit-diff core
+# ---------------------------------------------------------------------------
+
+def rel_rows(a, b):
+    """Per row (per entry of a 1-D batch): ‖a_i − b_i‖/‖b_i‖, in float64."""
+    import torch
+    a, b = a.detach().double(), b.detach().double()
+    if a.ndim == 1:
+        a, b = a[:, None], b[:, None]
+    return torch.linalg.vector_norm(a - b, dim=-1) / \
+        torch.linalg.vector_norm(b, dim=-1)
+
+
+def timed(device, fn):
+    """``(fn(), seconds)``, the device drained before and after."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def phase_vmap_hypergrad(device, gen, B, d, m):
+    """Phase 17: B ridge hypergradients under ``torch.func.vmap`` — (a) of
+    ``grad``, (b) of ``jvp`` in θ, (c) ``GradientDescent.run()`` — against
+    a Python loop over the instances and the float64 closed form."""
+    import torch
+    import torch.func
+    from repro_torch.core import GradientDescent, custom_root
+    f32 = torch.float32
+    _, _, X, theta = ridge_batch(gen, B, d, m, f32, device)
+    y = torch.randn(B, m, generator=gen, device=device, dtype=f32)
+    eye = torch.eye(d, device=device, dtype=f32)
+
+    def F(x, X, y, t):
+        return X.T @ (X @ x - y) / m + t * x
+
+    @custom_root(F, solve="pallas_cg", tol=HYPERGRAD_TOL)
+    def ridge(init, X, y, t):
+        return torch.linalg.solve(X.T @ X / m + t * eye, X.T @ y / m)
+
+    def grad_theta(X, y, t):                 # (a) d(Σx*²)/dθ
+        return torch.func.grad(
+            lambda tt: (ridge(None, X, y, tt) ** 2).sum())(t)
+
+    def tangent(X, y, t):                    # (b) dx*/dθ
+        return torch.func.jvp(lambda tt: ridge(None, X, y, tt), (t,),
+                              (torch.ones_like(t),))[1]
+
+    # float64 closed form: dx*/dθ = −A⁻¹x*, d(Σx*²)/dθ = −2 x*ᵀA⁻¹x*
+    Xd = X.double()
+    A = Xd.transpose(1, 2) @ Xd / m + theta.double()[:, None, None] * \
+        torch.eye(d, device=device, dtype=torch.float64)
+    xs = torch.linalg.solve(A, (Xd.transpose(1, 2) @ y.double()[..., None])
+                            [..., 0] / m)
+    dxs = -torch.linalg.solve(A, xs)
+    want = {"grad": 2 * (xs * dxs).sum(-1), "jvp": dxs}
+    del A, Xd
+
+    res = {}
+    cg_counts(reset=True)
+    timed(device, lambda: torch.func.vmap(
+        lambda X, y, t: ridge(None, X, y, t))(X, y, theta))
+    res["fwd_launches"] = cg_counts()[0]
+    for name, fn in (("grad", grad_theta), ("jvp", tangent)):
+        torch.func.vmap(fn)(X, y, theta)             # warm-up, not counted
+        cg_counts(reset=True)
+        got, s_b = timed(device, lambda: torch.func.vmap(fn)(X, y, theta))
+        launches, by_layout = cg_counts()
+        cg_counts(reset=True)
+        loop, s_l = timed(device, lambda: torch.stack(
+            [fn(X[i], y[i], theta[i]) for i in range(B)]))
+        res[name] = dict(
+            launches=launches, by_layout=by_layout,
+            loop_launches=cg_counts()[0], batched_s=s_b, loop_s=s_l,
+            vs_loop=float(rel_rows(got, loop).max()),
+            vs_closed=float(rel_rows(got, want[name]).max()),
+            # controls: the same checks against the loop's values shifted
+            # by one instance must fail
+            control_loop=float(rel_rows(got, loop.roll(1, 0)).max()),
+            control_closed=float(rel_rows(got, want[name].roll(1, 0))
+                                 .max()))
+
+    # (c) a batch axis over run(): fixed step 1/L, one masked loop
+    def f(x, X, y, t):
+        return 0.5 * ((X @ x - y) ** 2).sum() / m + 0.5 * t * (x ** 2).sum()
+
+    L = float(torch.linalg.eigvalsh(X.transpose(1, 2) @ X / m).max()) + \
+        float(theta.max())
+    gd = GradientDescent(f, stepsize=1.0 / L, maxiter=5000, tol=RUN_TOL,
+                         solve="pallas_cg", linsolve_tol=HYPERGRAD_TOL)
+    x0 = torch.zeros(d, device=device, dtype=f32)
+
+    def run(X, y, t):
+        x, info = gd.run(x0, X, y, t)
+        return x, info.iterations, info.converged
+
+    (_, its, conv), s_b = timed(device, lambda: torch.func.vmap(run)(
+        X, y, theta))
+    loop, s_l = timed(device, lambda: [run(X[i], y[i], theta[i])
+                                       for i in range(B)])
+    loop_its = torch.stack([r[1] for r in loop])
+    cg_counts(reset=True)
+    g_run, s_g = timed(device, lambda: torch.func.vmap(torch.func.grad(
+        lambda X, y, t: (gd.run(x0, X, y, t)[0] ** 2).sum(), argnums=2))(
+        X, y, theta))
+    launches, by_layout = cg_counts()
+    res["run"] = dict(
+        its=its.tolist(), loop_its=loop_its.tolist(),
+        converged=bool(conv.all()),
+        its_diff=int((its - loop_its).abs().max()), batched_s=s_b,
+        loop_s=s_l, grad_s=s_g, launches=launches, by_layout=by_layout,
+        grad_vs_closed=float(rel_rows(g_run, want["grad"]).max()))
+    return res
+
+
+def deq_cell(z, x, w):
+    """``examples/deq_block.py``'s cell, the norm taken per token."""
+    import torch
+    h = torch.tanh(z @ w["w1"]) @ w["w2"]
+    out = x + 0.5 * h
+    return out / (1.0 + 0.1 * torch.linalg.vector_norm(out, dim=-1,
+                                                        keepdim=True))
+
+
+def flat64(tree):
+    import torch
+    return torch.cat([tree[k].detach().double().reshape(-1)
+                      for k in sorted(tree)])
+
+
+def cosine(a, b) -> float:
+    import torch
+    return float(a @ b / (torch.linalg.vector_norm(a)
+                          * torch.linalg.vector_norm(b)))
+
+
+def phase_deq(device, gen, d, d_ff, tokens, unroll_tokens, depth, scale):
+    """Phase 18: the DEQ block at full width — the forward, the gradient
+    of Σz*² in the weights for each backward solver and approximate mode,
+    and the implicit gradient against an unrolled backprop."""
+    import torch
+    import torch.func
+    from repro_torch import observability as obs
+    from repro_torch.core import (ImplicitDiffSpec, deq_fixed_point,
+                                  make_deq_solver)
+    f32 = torch.float32
+    w = {"w1": torch.randn(d, d_ff, generator=gen, device=device,
+                           dtype=f32) * (scale / math.sqrt(d)),
+         "w2": torch.randn(d_ff, d, generator=gen, device=device,
+                           dtype=f32) * (scale / math.sqrt(d_ff))}
+    x = torch.randn(tokens, d, generator=gen, device=device, dtype=f32)
+
+    def fwd(n):      # the forward tolerance scales with √(tokens)
+        return dict(fwd_iters=DEQ_FWD["fwd_iters"],
+                    fwd_tol=DEQ_FWD["fwd_tol"] * math.sqrt(n / DEQ["tokens"]))
+
+    solver = make_deq_solver(deq_cell, **fwd(tokens))
+    (z, info), fwd_s = timed(device, lambda: solver.run(
+        torch.zeros_like(x), x, w))
+    # contraction factor of the cell at z*: power iteration on its Jacobian
+    v = torch.randn(z.shape, generator=gen, device=device, dtype=f32)
+    for _ in range(20):
+        jv = torch.func.jvp(lambda zz: deq_cell(zz, x, w), (z,), (v,))[1]
+        rho = float(torch.linalg.vector_norm(jv)
+                    / torch.linalg.vector_norm(v))
+        v = jv / torch.linalg.vector_norm(jv)
+    del v, jv
+
+    def grad_of(n, **kw):
+        """d(Σz*²)/dw at the first n tokens, seconds, the backward's
+        ``backward_done`` values (iterations or matvec budget)."""
+        xs = x[:n]
+
+        def loss(w):
+            return (deq_fixed_point(deq_cell, torch.zeros_like(xs), xs, w,
+                                    **fwd(n), **kw) ** 2).sum()
+
+        obs.clear_recorded()
+        with obs.observe(True, record=True):
+            g, secs = timed(device, lambda: flat64(torch.func.grad(loss)(w)))
+        done = [e.values for e in obs.recorded() if e.kind == "backward_done"]
+        obs.clear_recorded()
+        return g, secs, done[-1]
+
+    exact, ref = {}, None
+    for solve in ("normal_cg", "neumann", "gmres", "bicgstab"):
+        g, secs, done = grad_of(tokens, diff_spec=ImplicitDiffSpec(
+            solve=solve, **DEQ_LINSOLVE))
+        ref = g if ref is None else ref
+        exact[solve] = dict(s=secs, iterations=int(done["iterations"]),
+                            converged=bool(done["converged"]),
+                            rel=rel(g, ref))
+    approx = {}
+    for mode, k in (("neumann_k", 8), ("one_step", 1), ("jacobian_free", 1)):
+        g, secs, done = grad_of(tokens, backward=mode, backward_iters=k)
+        est = make_deq_solver(deq_cell, **fwd(tokens), backward=mode,
+                              backward_iters=k).estimate_hypergrad_error(
+            z, x, w, cotangent=2 * z)
+        approx[mode] = dict(s=secs, matvecs=int(done["iterations"]),
+                            est=float(est), cos=cosine(g, ref),
+                            rel=rel(g, ref))
+    del ref, g
+    free(device)
+
+    xu = x[:unroll_tokens]
+
+    def loss_unrolled(w):
+        zu = torch.zeros_like(xu)
+        for _ in range(depth):
+            zu = deq_cell(zu, xu, w)
+        return (zu ** 2).sum()
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    gu, unroll_s = timed(device, lambda: flat64(
+        torch.func.grad(loss_unrolled)(w)))
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if device.type == "cuda" else None
+    gi, implicit_s, _ = grad_of(unroll_tokens, diff_spec=ImplicitDiffSpec(
+        solve="normal_cg", **DEQ_LINSOLVE))
+    gj, _, _ = grad_of(unroll_tokens, backward="jacobian_free")
+    out = dict(fwd_iters=int(info.iterations), fwd_error=float(info.error),
+               fwd_tol=fwd(tokens)["fwd_tol"], converged=bool(info.converged),
+               fwd_s=fwd_s, rho=rho, exact=exact, approx=approx,
+               unroll=dict(rel=rel(gi, gu), control=rel(gj, gu), s=unroll_s,
+                           implicit_s=implicit_s, peak_gb=peak))
+    del gu, gi, gj, x, z, w
+    free(device)
+    return out
+
+
+def poly(depth, A, V):
+    """The approximate modes' polynomial Σ_{j≤depth} (I − A)ʲ v on the rows
+    of V (A symmetric): depth 0 jacobian_free, 1 one_step, k neumann_k."""
+    U = V
+    for _ in range(depth):
+        U = U + (V - U @ A.T)
+    return U
+
+
+def phase_approx_service(device, gen, d, rhos, n, k):
+    """Phase 19: the solve service's approximate arm — n hypergradient
+    requests per (ρ, mode) on A = I − ρS, ‖S‖₂ = 1, against float64."""
+    import torch
+    from repro_torch.core import root_vjp
+    from repro_torch.runtime import SolveService
+    f32, f64 = torch.float32, torch.float64
+    S = torch.randn(d, d, generator=gen, device=device, dtype=f64)
+    S = (S + S.T) / 2
+    S = S / torch.linalg.matrix_norm(S, ord=2)
+    theta = torch.randn(n, d, generator=gen, device=device, dtype=f32)
+    v = torch.randn(n, d, generator=gen, device=device, dtype=f32)
+    systems = {}
+    for rho in rhos:
+        A64 = torch.eye(d, device=device, dtype=f64) - rho * S
+        A = A64.to(f32)
+        systems[rho] = (A64, A, torch.linalg.solve(A, theta.T).T)
+
+    def F_of(A):
+        return lambda x, t: t - A @ x
+
+    depth = {"one_step": 1, "neumann_k": k, "jacobian_free": 0}
+    svc = SolveService(device=device, max_batch=n)   # warm-start cache on
+
+    def submit(rho, mode):
+        _, A, x_star = systems[rho]
+        kw = dict(solve="pallas_cg", tol=HYPERGRAD_TOL) if mode == "exact" \
+            else dict(backward=mode, backward_iters=k)
+        return [svc.submit_hypergrad(F_of(A), x_star[i], (theta[i],), v[i],
+                                     **kw) for i in range(n)]
+
+    cg_counts(reset=True)
+    futs = {(rho, "exact"): submit(rho, "exact") for rho in rhos}
+    _, exact_s = timed(device, svc.flush)
+    launches, by_layout = cg_counts()
+    cache_exact = len(svc.cache)
+    futs.update({(rho, mode): submit(rho, mode) for rho in rhos
+                 for mode in depth})
+    _, approx_s = timed(device, svc.flush)
+    res = dict(launches=launches, by_layout=by_layout, exact_s=exact_s,
+               approx_s=approx_s, cache_exact=cache_exact,
+               cache_after=len(svc.cache),
+               routes=sorted({f"{key.solver}/{key.backward}"
+                              for key, _ in svc._compiled}), rows={})
+    v64 = v.double()
+    for (rho, mode), fs in futs.items():
+        A64, A, x_star = systems[rho]
+        results = [f.result() for f in fs]
+        u = torch.stack([r.x[0] for r in results]).double()   # θ̄ = u
+        row = dict(iterations=sorted({r.info.iterations for r in results}))
+        if mode == "exact":
+            want = torch.stack([root_vjp(F_of(A), x_star[i], (theta[i],),
+                                         v[i], solve="lu")[0]
+                                for i in range(n)])
+            row["err"] = float(rel_rows(u, want).max())
+        else:
+            dp = depth[mode]
+            row["err"] = float(rel_rows(u, poly(dp, A64, v64)).max())
+            # control: the polynomial one term off
+            row["control"] = float(rel_rows(u, poly(
+                dp + 1 if dp == 0 else dp - 1, A64, v64)).max())
+            est = torch.tensor([r.info.hypergrad_error_estimate
+                                for r in results], dtype=f64)
+            est_ref = rel_rows(u @ A64.T, v64)          # ‖v − Aᵀu‖/‖v‖
+            row["est"] = est
+            row["est_err"] = float(((est - est_ref.cpu()).abs()
+                                    / est_ref.cpu()).max())
+            row["est_control"] = float(((est - rel_rows(
+                u.roll(1, 0) @ A64.T, v64).cpu()).abs()
+                / est_ref.cpu()).max())
+        res["rows"][(rho, mode)] = row
+    return res
+
+
+def phase_solvers(device, gen, B, d):
+    """Phase 20: bicgstab, gmres, neumann, block-Jacobi cg on a
+    BlockDiagonal, and the ComposedOperator / RaveledOperator matvecs."""
+    import torch
+    from repro_torch.core import (BlockDiagonal, ComposedOperator,
+                                  DenseOperator, JacobianOperator,
+                                  route_solve)
+    f32 = torch.float32
+    eye = torch.eye(d, device=device, dtype=f32)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device, dtype=f32)
+
+    general = eye + 0.5 * randn(B, d, d) / math.sqrt(d)
+    M = randn(B, d, d)
+    M = M / torch.linalg.matrix_norm(M, ord=2)[:, None, None]
+    contractive = eye - 0.5 * M
+    b = randn(B, d)
+    out = {}
+    for solver, A in (("bicgstab", general), ("gmres", general),
+                      ("neumann", contractive)):
+        op = DenseOperator(A, symmetric=False)
+        (x, info), secs = timed(device, lambda: route_solve(
+            solver, op, b, tol=SOLVERS_TOL, return_info=True))
+        Ad = A.double()
+        mv = lambda xx: torch.einsum("bij,bj->bi", Ad, xx.double())
+        out[solver] = dict(its=info.iterations.tolist(),
+                           converged=bool(info.converged.all()),
+                           reported=float((info.residual / torch.linalg
+                                           .vector_norm(b, dim=-1)).max()),
+                           resid=float(rel_rows(mv(x), b).max()),
+                           control=float(rel_rows(mv(x.roll(1, 0)), b).max()),
+                           s=secs)
+    # cg + block_jacobi on 8 SPD blocks of 64: one iteration
+    blocks = []
+    for _ in range(8):
+        G = randn(B, 64, 64)
+        blocks.append(DenseOperator(G @ G.transpose(1, 2) / 64
+                                    + torch.eye(64, device=device, dtype=f32),
+                                    positive_definite=True))
+    bd = BlockDiagonal(blocks)
+    rhs = tuple(randn(B, 64) for _ in blocks)
+    (xb, info), secs = timed(device, lambda: route_solve(
+        "cg", bd, rhs, tol=SOLVERS_TOL, precond="block_jacobi",
+        return_info=True))
+    flat = lambda t: torch.cat(list(t), dim=-1)
+    out["block_jacobi"] = dict(
+        its=info.iterations.tolist(), converged=bool(info.converged.all()),
+        reported=float((info.residual / torch.linalg.vector_norm(
+            flat(rhs), dim=-1)).max()),
+        resid=float(rel_rows(flat(bd.matvec(xb)), flat(rhs)).max()),
+        control=float(rel_rows(flat(bd.matvec(tuple(
+            t.roll(1, 0) for t in xb))), flat(rhs)).max()), s=secs)
+    # operator matvecs against their materialized matrices
+    comp = ComposedOperator(DenseOperator(randn(B, d, d) / math.sqrt(d)),
+                            DenseOperator(randn(B, d, d) / math.sqrt(d)))
+    vb = randn(B, d)
+    dense = comp.materialize()
+    want = torch.einsum("bij,bj->bi", dense, vb)
+    Wa, Wb = randn(d, d) / math.sqrt(d), randn(d, d) / math.sqrt(d)
+    half = d // 2
+
+    def tree_map_(t):
+        return {"a": torch.tanh(t["a"] @ Wa[:half, :half]
+                                + t["b"] @ Wb[half:, :half]),
+                "b": torch.sin(t["b"] @ Wb[:half, half:]) + t["a"]}
+
+    raveled = JacobianOperator(tree_map_, {"a": randn(half),
+                                           "b": randn(half)}).raveled()
+    vf = randn(d)
+    out["matvec"] = dict(
+        composed=float(rel_rows(comp.matvec(vb), want).max()),
+        composed_control=float(rel_rows(comp.T.matvec(vb), want).max()),
+        raveled=rel(raveled.matvec(vf), raveled.materialize() @ vf),
+        raveled_control=rel(raveled.rmatvec(vf),
+                            raveled.materialize() @ vf))
+    return out
+
+
 def zeroed(op):
     """A replacement of a kernel op whose attention / WKV output is 0."""
     def fn(*args, **kw):
@@ -1957,8 +2415,161 @@ def main(argv=None) -> None:
             f" ({r['engine']['steps']} steps in {r['engine']['wall']:.2f} s)"
             for r in (s14, s15)))
 
+    # 17. a batch of hypergradients as one batched solve
+    s17 = phase_vmap_hypergrad(device, gen, B=64, d=512, m=1024)
+    check(s17["fwd_launches"] == 0, "phase 17: the wrapped solver's "
+          f"forward launched the kernel {s17['fwd_launches']} times")
+    for path in ("grad", "jvp"):
+        r = s17[path]
+        check(r["launches"] == 1 and r["by_layout"] == {MAIN_LAYOUT: 1},
+              f"phase 17 ({path}): vmap launched {r['launches']} "
+              f"{r['by_layout']}, expected one {MAIN_LAYOUT} launch for 64")
+        check(r["loop_launches"] == 64, f"phase 17 ({path}): the loop "
+              f"launched {r['loop_launches']} times, expected 64")
+        check(r["vs_loop"] <= VMAP_RTOL < r["control_loop"],
+              f"phase 17 ({path}): vmap against the loop {r['vs_loop']:.3e}"
+              f" (limit {VMAP_RTOL}, control {r['control_loop']:.3e})")
+        check(r["vs_closed"] <= CLOSED_RTOL < r["control_closed"],
+              f"phase 17 ({path}): against the closed form "
+              f"{r['vs_closed']:.3e} (limit {CLOSED_RTOL}, control "
+              f"{r['control_closed']:.3e})")
+    run17 = s17["run"]
+    check(run17["converged"], "phase 17 (c): an instance of the vmapped "
+          "run() did not converge")
+    check(run17["its_diff"] <= 1, f"phase 17 (c): vmapped iterations "
+          f"differ from the loop's by {run17['its_diff']} > 1")
+    check(run17["launches"] == 1 and run17["by_layout"] == {MAIN_LAYOUT: 1},
+          f"phase 17 (c): vmap(grad) through run() launched "
+          f"{run17['launches']} {run17['by_layout']}, expected one "
+          f"{MAIN_LAYOUT}")
+    say("17 vmap hypergrad", "64 ridge hypergradients d=512 float32 "
+        "pallas_cg: " + "; ".join(
+            f"({name}) vmap {s17[p]['launches']} launch "
+            f"{s17[p]['by_layout']} "
+            f"in {s17[p]['batched_s'] * 1e3:.1f} ms, loop "
+            f"{s17[p]['loop_launches']} launches in "
+            f"{s17[p]['loop_s'] * 1e3:.1f} ms; rel vs loop "
+            f"{s17[p]['vs_loop']:.2e} (control {s17[p]['control_loop']:.2e})"
+            f", vs float64 closed form {s17[p]['vs_closed']:.2e} (control "
+            f"{s17[p]['control_closed']:.2e})"
+            for p, name in (("grad", "a"), ("jvp", "b")))
+        + f"; (c) GradientDescent.run() tol={RUN_TOL}: per-instance "
+        f"iterations {run17['its']} (loop {run17['loop_its']}, max |Δ| "
+        f"{run17['its_diff']}), vmap {run17['batched_s']:.3f} s, loop "
+        f"{run17['loop_s']:.3f} s; vmap(grad) through run() "
+        f"{run17['launches']} launch {run17['by_layout']} in "
+        f"{run17['grad_s']:.3f} s, rel vs closed form at the converged "
+        f"x* {run17['grad_vs_closed']:.2e} (information)")
+
+    # 18. the DEQ layer at full width
+    s18 = phase_deq(device, gen, **DEQ)
+    check(s18["converged"], f"phase 18: the DEQ forward did not converge "
+          f"(error {s18['fwd_error']:.3e} > {s18['fwd_tol']:.3e})")
+    check(s18["rho"] < 1, f"phase 18: contraction factor {s18['rho']:.3f}")
+    worst18 = max(e["rel"] for e in s18["exact"].values())
+    check(all(e["converged"] for e in s18["exact"].values()),
+          f"phase 18: an exact backward solve did not converge "
+          f"{ {k: e['converged'] for k, e in s18['exact'].items()} }")
+    check(worst18 <= DEQ_AGREE_RTOL < s18["approx"]["jacobian_free"]["rel"],
+          f"phase 18: exact solvers apart by {worst18:.3e} (limit "
+          f"{DEQ_AGREE_RTOL}, control jacobian_free "
+          f"{s18['approx']['jacobian_free']['rel']:.3e})")
+    u18 = s18["unroll"]
+    check(u18["rel"] <= DEQ_UNROLL_RTOL < u18["control"],
+          f"phase 18: implicit vs {DEQ['depth']}-layer unrolled gradient "
+          f"{u18['rel']:.3e} (limit {DEQ_UNROLL_RTOL}, control "
+          f"{u18['control']:.3e})")
+    say("18 deq", f"d={DEQ['d']} d_ff={DEQ['d_ff']} x ({DEQ['tokens']}, "
+        f"{DEQ['d']}) float32, weights × {DEQ['scale']}/√fan-in: "
+        f"contraction {s18['rho']:.4f}; Anderson forward "
+        f"{s18['fwd_iters']} iterations to ‖T(z)−z‖ {s18['fwd_error']:.3e} "
+        f"<= {s18['fwd_tol']:.1e} in {s18['fwd_s']:.3f} s; d(Σz*²)/dw per "
+        "backward (iterations or matvecs, s, rel vs normal_cg): " + ", ".join(
+            f"{k} ({e['iterations']}, {e['s']:.3f}, {e['rel']:.2e})"
+            for k, e in s18["exact"].items())
+        + "; approximate (matvecs, s, hypergrad_error_estimate, cosine, "
+        "rel): " + ", ".join(
+            f"{k} ({e['matvecs']}, {e['s']:.3f}, {e['est']:.3e}, "
+            f"{e['cos']:.6f}, {e['rel']:.2e})"
+            for k, e in s18["approx"].items())
+        + f"; at {DEQ['unroll_tokens']} tokens implicit (normal_cg, "
+        f"{u18['implicit_s']:.3f} s) vs {DEQ['depth']}-layer unrolled "
+        f"({u18['s']:.3f} s, peak {u18['peak_gb'] or 0:.2f} GB): rel "
+        f"{u18['rel']:.2e} (limit {DEQ_UNROLL_RTOL}, jacobian_free control "
+        f"{u18['control']:.2e})")
+
+    # 19. the service's approximate arm
+    s19 = phase_approx_service(device, gen, **APPROX)
+    rows19 = s19["rows"]
+    check(s19["launches"] == 2 and s19["by_layout"] == {MAIN_LAYOUT: 2},
+          f"phase 19: the exact buckets launched {s19['launches']} "
+          f"{s19['by_layout']}, expected 2 on {MAIN_LAYOUT}")
+    check(s19["cache_after"] == s19["cache_exact"], f"phase 19: the "
+          f"approximate requests moved the cache from {s19['cache_exact']} "
+          f"to {s19['cache_after']} entries")
+    for (rho, mode), row in rows19.items():
+        if mode == "exact":
+            check(row["err"] <= EXACT_RTOL, f"phase 19: exact bucket at "
+                  f"ρ={rho} {row['err']:.3e} from solve='lu' > {EXACT_RTOL}")
+            continue
+        check(row["err"] <= POLY_RTOL < row["control"], f"phase 19: {mode} "
+              f"at ρ={rho} {row['err']:.3e} from its float64 polynomial "
+              f"(limit {POLY_RTOL}, control {row['control']:.3e})")
+        check(row["est_err"] <= EST_RTOL < row["est_control"], f"phase 19: "
+              f"{mode} estimate at ρ={rho} {row['est_err']:.3e} from float64"
+              f" (limit {EST_RTOL}, control {row['est_control']:.3e})")
+    lo, hi = APPROX["rhos"]
+    for mode in ("one_step", "neumann_k", "jacobian_free"):
+        check(bool((rows19[(hi, mode)]["est"] >= rows19[(lo, mode)]["est"])
+                   .all()), f"phase 19: {mode} estimates at ρ={hi} below "
+              f"those at ρ={lo}")
+    say("19 service/approx", f"A = I − ρS d={APPROX['d']} float32, "
+        f"{APPROX['n']} submit_hypergrad per (ρ, mode), routes "
+        f"{s19['routes']}: exact buckets {s19['launches']} launches "
+        f"{s19['by_layout']} in {s19['exact_s'] * 1e3:.1f} ms, approximate "
+        f"buckets in {s19['approx_s'] * 1e3:.1f} ms; cache "
+        f"{s19['cache_exact']} -> {s19['cache_after']} entries; per (ρ, "
+        "mode): " + ", ".join(
+            f"({rho}, {mode}) iterations {row['iterations']} err "
+            f"{row['err']:.2e}" + ("" if mode == "exact" else
+                                   f" (control {row['control']:.2e}) est "
+                                   f"{float(row['est'].min()):.3e}–"
+                                   f"{float(row['est'].max()):.3e} est err "
+                                   f"{row['est_err']:.2e} (control "
+                                   f"{row['est_control']:.2e})")
+            for (rho, mode), row in rows19.items()))
+
+    # 20. the new solvers and operators
+    s20 = phase_solvers(device, gen, B=64, d=512)
+    for solver in ("bicgstab", "gmres", "neumann", "block_jacobi"):
+        r = s20[solver]
+        check(r["converged"] and r["reported"] <= SOLVERS_TOL,
+              f"phase 20: {solver} reported residual {r['reported']:.3e} "
+              f"(converged {r['converged']}, tol {SOLVERS_TOL})")
+        check(r["resid"] <= 2 * SOLVERS_TOL < r["control"],
+              f"phase 20: {solver} float64 residual {r['resid']:.3e} "
+              f"(limit {2 * SOLVERS_TOL}, control {r['control']:.3e})")
+    check(set(s20["block_jacobi"]["its"]) == {1}, "phase 20: block-Jacobi "
+          f"cg took {sorted(set(s20['block_jacobi']['its']))} iterations")
+    mv20 = s20["matvec"]
+    for op in ("composed", "raveled"):
+        check(mv20[op] <= MATVEC_RTOL < mv20[f"{op}_control"],
+              f"phase 20: {op} matvec {mv20[op]:.3e} from its "
+              f"materialized matrix (limit {MATVEC_RTOL}, control "
+              f"{mv20[op + '_control']:.3e})")
+    say("20 solvers", f"(64, 512) float32 tol={SOLVERS_TOL}: " + ", ".join(
+        f"{name} iterations {min(s20[name]['its'])}–{max(s20[name]['its'])}"
+        f" residual {s20[name]['reported']:.2e} (float64 "
+        f"{s20[name]['resid']:.2e}, control "
+        f"{s20[name]['control']:.2e}) {s20[name]['s'] * 1e3:.1f} ms"
+        for name in ("bicgstab", "gmres", "neumann", "block_jacobi"))
+        + f"; ComposedOperator matvec vs materialized {mv20['composed']:.2e}"
+        f" (control {mv20['composed_control']:.2e}), RaveledOperator "
+        f"{mv20['raveled']:.2e} (control {mv20['raveled_control']:.2e})")
+
     launches = s4["launches"] + s5["launches"] + s6["fwd"] + s6["bwd"] \
-        + s7["launches"]
+        + s7["launches"] + s17["grad"]["launches"] \
+        + s17["jvp"]["launches"] + run17["launches"] + s19["launches"]
     print(json.dumps({"kernels": [{
         "name": "batched_cg", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,

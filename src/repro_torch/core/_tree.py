@@ -110,3 +110,57 @@ def ravel_batched(tree) -> Tuple[torch.Tensor, Callable]:
              for p, s, dt in zip(parts, shapes, dtypes)], spec)
 
     return flat, unravel
+
+
+def is_batched(*trees) -> bool:
+    """Whether a tensor leaf of ``trees`` carries a ``torch.func.vmap``
+    batch axis, at any depth of functorch wrapping (a ``torch.func.grad``
+    inside a ``vmap`` wraps the batched tensor once more).  The loops that
+    read the host once an iteration test this to run a batch as one loop
+    through their ``torch.autograd.Function``'s ``vmap`` rule."""
+    from torch._C import _functorch
+    for tree in trees:
+        for leaf in tree_leaves(tree):
+            t = leaf
+            while isinstance(t, torch.Tensor) and \
+                    _functorch.is_functorch_wrapped_tensor(t):
+                if _functorch.is_batchedtensor(t):
+                    return True
+                t = _functorch.get_unwrapped(t)
+    return False
+
+
+class Flat:
+    """Pytrees as one flat list of their tensors and back: the inputs and
+    outputs of a ``torch.autograd.Function``, whose ``vmap`` rule must see
+    every batched tensor.  Non-tensor leaves stay here."""
+
+    def __init__(self, *trees):
+        self.parts = [tree_flatten(tree) for tree in trees]
+        self.counts = [sum(isinstance(leaf, torch.Tensor) for leaf in leaves)
+                       for leaves, _ in self.parts]
+        self.tensors = [leaf for leaves, _ in self.parts for leaf in leaves
+                        if isinstance(leaf, torch.Tensor)]
+
+    def _fill(self, values, rest) -> list:
+        it = iter(values)
+        return [tree_unflatten([next(it) if isinstance(leaf, torch.Tensor)
+                                else rest(leaf) for leaf in leaves], spec)
+                for leaves, spec in self.parts]
+
+    def trees(self, tensors) -> list:
+        """The trees with ``tensors`` in place of their tensor leaves."""
+        return self._fill(tensors, lambda leaf: leaf)
+
+    def dims(self, dims) -> list:
+        """``torch.func.vmap`` ``in_dims`` of the trees: ``dims`` at the
+        tensor leaves, ``None`` at the others."""
+        return self._fill(dims, lambda leaf: None)
+
+
+def batch_first(tensors, in_dims):
+    """The tensors of a ``vmap`` rule with their batch axes moved to 0,
+    and the dims (0 or None) that say which carry one."""
+    return ([t if d is None else t.movedim(d, 0)
+             for t, d in zip(tensors, in_dims)],
+            [None if d is None else 0 for d in in_dims])

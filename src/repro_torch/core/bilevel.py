@@ -17,10 +17,12 @@ Differences from the JAX driver:
     floating-point tensor leaves of θ; θ may be any pytree, e.g.
     ``(θ, None)`` — leaves that are not such tensors pass through every
     outer step unchanged;
-  * ``jit=`` has no counterpart (PyTorch runs eagerly) and is not taken;
-  * ``backward`` must be ``"exact"``: the approximate modes, their
-    ``backward_iters`` and the per-step ``hypergrad_error_estimate``
-    accounting are not ported yet (ROADMAP queue A.4).
+  * ``jit=`` has no counterpart (PyTorch runs eagerly) and is not taken.
+
+``backward`` / ``backward_iters`` select an approximate hypergradient;
+with an ``IterativeSolver`` running such a mode, each step's
+``inner_info.hypergrad_error_estimate`` reports the relative residual of
+the cotangent system at the outer loss's cotangent.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import dataclasses
 from typing import Any, Callable, Optional, Union
 
 import torch
+import torch.func
 
 from repro_torch.core import diff_api, optimality
 from repro_torch.core._tree import tree_flatten, tree_unflatten
@@ -49,7 +52,8 @@ class BilevelSolution:
 
 def _make_inner_runner(inner_solver, inner_objective, fixed_point, solve,
                        tol, maxiter, ridge, precond, backward=None,
-                       diff_spec=None, mode=None) -> Callable:
+                       backward_iters=None, diff_spec=None,
+                       mode=None) -> Callable:
     """``fn(init, *theta) -> (x_star, OptInfo | None)``, implicit-diff'd.
 
     ``None`` loose routing arguments mean "not specified": an
@@ -59,9 +63,12 @@ def _make_inner_runner(inner_solver, inner_objective, fixed_point, solve,
     routing-only spec keeps the solver's declared mapping, a spec carrying
     a mapping supersedes it.  ``mode`` selects the differentiation wrapping
     (``None`` keeps the solver's own, ``"auto"`` for bare callables).
+    An ``IterativeSolver``'s runner carries the configured solver as
+    ``runner.solver`` (``solve_bilevel`` replays its backward treatment).
     """
     loose = dict(solve=solve, tol=tol, maxiter=maxiter, ridge=ridge,
-                 precond=precond, backward=backward)
+                 precond=precond, backward=backward,
+                 backward_iters=backward_iters)
     if diff_spec is not None:
         if any(v is not None for v in loose.values()):
             raise ValueError("pass the backward-solve routing either via "
@@ -81,14 +88,17 @@ def _make_inner_runner(inner_solver, inner_objective, fixed_point, solve,
             overrides = dict(solve=diff_spec.solve, linsolve_tol=diff_spec.tol,
                              linsolve_maxiter=diff_spec.maxiter,
                              ridge=diff_spec.ridge, precond=diff_spec.precond,
-                             backward=diff_spec.backward)
+                             backward=diff_spec.backward,
+                             backward_iters=diff_spec.backward_iters,
+                             error_estimate=diff_spec.error_estimate)
         else:
             overrides = {k: v for k, v in [("solve", solve),
                                            ("linsolve_tol", tol),
                                            ("linsolve_maxiter", maxiter),
                                            ("ridge", ridge),
                                            ("precond", precond),
-                                           ("backward", backward)]
+                                           ("backward", backward),
+                                           ("backward_iters", backward_iters)]
                          if v is not None}
         if mode is not None:
             overrides["mode"] = mode
@@ -100,7 +110,12 @@ def _make_inner_runner(inner_solver, inner_objective, fixed_point, solve,
             deco = diff_api.implicit_diff(diff_spec.replace(has_aux=True),
                                           mode=solver.mode)
             return lambda init, *theta: deco(solver._iterate)(init, *theta)
-        return solver.run
+
+        def runner(init, *theta):
+            return solver.run(init, *theta)
+
+        runner.solver = solver
+        return runner
 
     mode = "auto" if mode is None else mode
     if diff_spec is not None:
@@ -125,7 +140,9 @@ def _make_inner_runner(inner_solver, inner_objective, fixed_point, solve,
                    tol=1e-6 if tol is None else tol,
                    maxiter=1000 if maxiter is None else maxiter,
                    ridge=0.0 if ridge is None else ridge, precond=precond,
-                   backward="exact" if backward is None else backward)
+                   backward="exact" if backward is None else backward,
+                   backward_iters=8 if backward_iters is None
+                   else backward_iters)
     if inner_objective is not None:
         spec = ImplicitDiffSpec(
             optimality_fun=optimality.stationary(inner_objective), **routing)
@@ -144,6 +161,7 @@ def make_implicit_inner(inner_solver: Union[Callable, IterativeSolver],
                         ridge: Optional[float] = None,
                         precond=None,
                         backward: Optional[str] = None,
+                        backward_iters: Optional[int] = None,
                         diff_spec: Optional[ImplicitDiffSpec] = None,
                         mode: Optional[str] = None) -> Callable:
     """Return ``fn(init, *theta) -> x_star`` with implicit derivatives.
@@ -153,15 +171,18 @@ def make_implicit_inner(inner_solver: Union[Callable, IterativeSolver],
     override it.  For a bare callable ``inner_solver(init, *theta) -> x*``,
     provide exactly one of ``inner_objective`` (stationarity condition
     used) or an explicit ``fixed_point`` mapping T(x, *theta); unspecified
-    routing arguments default to cg / 1e-6 / 1000 / 0.0.  ``diff_spec``
+    routing arguments default to cg / 1e-6 / 1000 / 0.0.
+    ``backward`` / ``backward_iters`` swap the converged backward solve
+    for an approximate mode.  ``diff_spec``
     bundles the same configuration as one ``ImplicitDiffSpec``; ``mode``
     picks the differentiation wrapping (the default serves
     ``torch.autograd.grad`` and ``torch.func.jvp``).
     """
     runner = _make_inner_runner(inner_solver, inner_objective, fixed_point,
                                 solve, tol, maxiter, ridge, precond,
-                                backward=backward, diff_spec=diff_spec,
-                                mode=mode)
+                                backward=backward,
+                                backward_iters=backward_iters,
+                                diff_spec=diff_spec, mode=mode)
     return lambda init, *theta: runner(init, *theta)[0]
 
 
@@ -185,6 +206,7 @@ def solve_bilevel(outer_loss: Callable,
                   linsolve_maxiter: Optional[int] = None,
                   ridge: Optional[float] = None, precond=None,
                   backward: Optional[str] = None,
+                  backward_iters: Optional[int] = None,
                   diff_spec: Optional[ImplicitDiffSpec] = None,
                   mode: Optional[str] = None,
                   warm_start: bool = True) -> BilevelSolution:
@@ -203,14 +225,19 @@ def solve_bilevel(outer_loss: Callable,
     one).  Each outer step takes ``torch.autograd.grad`` of the outer loss
     with respect to θ's floating-point tensor leaves; every other leaf of
     the θ pytree passes through unchanged.  ``warm_start`` reuses the
-    previous inner solution as init.  Each step adds one to the global
+    previous inner solution as init.  ``backward`` / ``backward_iters``
+    select an approximate hypergradient; with an ``IterativeSolver`` in
+    such a mode (and ``error_estimate=True``, its default) each step's
+    ``inner_info.hypergrad_error_estimate`` is the relative residual of
+    the cotangent system at the outer loss's cotangent, one more
+    backward application and matvec a step.  Each step adds one to the global
     ``repro_bilevel_steps_total`` counter and emits a ``bilevel_step``
     event (observe-gated).
     """
     implicit_solver = _make_inner_runner(
         inner_solver, inner_objective, fixed_point, solve, inner_tol,
         linsolve_maxiter, ridge, precond, backward=backward,
-        diff_spec=diff_spec, mode=mode)
+        backward_iters=backward_iters, diff_spec=diff_spec, mode=mode)
 
     def outer_value_and_grad(theta, x_init):
         leaves, spec = tree_flatten(theta)
@@ -227,6 +254,15 @@ def solve_bilevel(outer_loss: Callable,
                  for p, g in zip(params, grads)]
         return val.detach(), slots, grads, _detached(x_star), info
 
+    est_solver = getattr(implicit_solver, "solver", None)
+    estimate = est_solver is not None and est_solver.error_estimate and \
+        est_solver.backward != "exact"
+
+    def estimate_fn(x_star, theta):
+        ct = torch.func.grad(outer_loss, argnums=0)(x_star, theta)
+        return est_solver.estimate_hypergrad_error(x_star, theta,
+                                                   cotangent=ct)
+
     theta = theta0
     vel = None
     xs = x_init
@@ -234,6 +270,9 @@ def solve_bilevel(outer_loss: Callable,
     x_star, info = x_init, None   # survive outer_steps=0
     for _ in range(outer_steps):
         val, slots, g, x_star, info = outer_value_and_grad(theta, xs)
+        if estimate and info is not None:
+            info = info._replace(
+                hypergrad_error_estimate=estimate_fn(x_star, theta))
         vel = g if vel is None else [momentum * v + gi
                                      for v, gi in zip(vel, g)]
         leaves, spec = tree_flatten(theta)

@@ -24,22 +24,33 @@ theorem on ``A dx = B θ̇`` with ``A = -∂₁F(x*, θ)``, ``B = ∂₂F(x*, θ
   * ``jvp`` is ``root_jvp``: ``Bθ̇`` by one ``torch.func.jvp``, then solve
     ``A dx = Bθ̇``.
 
-So ``torch.autograd.grad`` / ``backward`` / ``torch.func.grad`` and
-``torch.func.jvp`` all work on the same wrapped function.  ``A`` is one
-``JacobianOperator`` per call (matvec a JVP, rmatvec a VJP), certified
-symmetric when the routed solver is symmetric-only.  Forward mode goes
-through ``torch.func.jvp`` (the operator's matvec is itself a
-``torch.func.jvp``, which the one-level ``torch.autograd.forward_ad``
-cannot nest).
+So ``torch.autograd.grad`` / ``backward`` / ``torch.func.grad`` /
+``jacrev`` and ``torch.func.jvp`` / ``jacfwd`` all work on the same
+wrapped function.  ``A`` is one ``JacobianOperator`` per call (matvec a
+JVP, rmatvec a VJP), certified symmetric when the routed solver is
+symmetric-only, or whatever the spec's ``system_operator`` factory
+builds.  Forward mode goes through ``torch.func.jvp`` (the operator's
+matvec is itself a ``torch.func.jvp``, which the one-level
+``torch.autograd.forward_ad`` cannot nest).  ``backward`` picks the
+treatment of the linear system in both directions: the converged solve
+(``"exact"``) or a fixed-budget polynomial (``"one_step"``,
+``"neumann_k"``, ``"jacobian_free"``; ``linear_solve.approx_inverse_apply``).
+
+Batching: the registry solvers read the host once an iteration, so they
+cannot run on ``torch.func.vmap``'s batched tensors.  Both the wrapper's
+Function and the linear solve of ``root_vjp`` / ``root_jvp`` (its own
+``torch.autograd.Function``, ``_SystemSolve``) therefore carry a ``vmap``
+rule: under ``torch.func.vmap`` the forward runs the solver once on the
+batch (``run()``'s loop masks each instance at its own convergence), and
+the backward or tangent system of the whole batch is ONE registry solve
+on a batch-aware operator (``batch_ndim=1``) built as a
+``torch.func.vmap`` of the per-instance JVP / VJP.  ``vmap`` of
+``grad``, of ``jvp``, ``jacrev`` (one operator, many right-hand sides)
+and ``jacfwd`` each run one solve.
 
 Mode selection (``mode=``): ``"auto"`` (both), ``"vjp"`` (reverse only;
 forward mode raises), ``"jvp"`` (forward only; reverse mode raises).
-
-Not ported yet (ROADMAP queue A.4): a ``vmap`` rule (so that
-``torch.func.vmap`` of a gradient runs one batched backward solve), the
-approximate backward modes (``backward != "exact"`` raises
-``NotImplementedError``; ``backward_iters`` / ``error_estimate`` come with
-them), ``system_operator`` and mesh placement (``sharding``).
+Mesh placement (``sharding``) is not ported yet (ROADMAP queue A.11).
 
 Conventions: the wrapped solver has signature ``solver(init, *theta)`` and
 returns ``x*`` (or ``(x*, aux)`` with ``has_aux=True``).  ``F``/``T`` take
@@ -59,7 +70,8 @@ import torch.func
 
 from repro_torch.core import linear_solve as ls
 from repro_torch.core import operators as ops
-from repro_torch.core._tree import (canonical, tree_flatten, tree_map,
+from repro_torch.core._tree import (Flat, batch_first, canonical,
+                                    tree_flatten, tree_leaves, tree_map,
                                     tree_unflatten)
 from repro_torch.observability import events as obs_events
 
@@ -95,8 +107,8 @@ class ImplicitDiffSpec:
     At most one of ``optimality_fun`` (root form: F(x*, θ) = 0) or
     ``fixed_point_fun`` (x* = T(x*, θ); the residual T(x) − x is derived)
     is set.  A spec with neither is *routing-only*: a bundle of
-    backward-solve settings (the solve service takes one via ``spec=``),
-    not wrappable by itself.
+    backward-solve settings (``solve_bilevel(diff_spec=...)``, the DEQ
+    layer, the solve service's ``spec=``), not wrappable by itself.
 
     ``solve`` is a registry name, ``"auto"``, or a callable
     ``fn(matvec, b, *, tol, maxiter, ridge)``; ``tol`` / ``maxiter`` /
@@ -106,9 +118,22 @@ class ImplicitDiffSpec:
     index the solver's ``*theta`` (0 = first after ``init``) for static
     non-tensor values passed through untouched.
 
-    ``backward`` must be ``"exact"``: the approximate modes
-    (``"one_step"``, ``"neumann_k"``, ``"jacobian_free"``) are not ported
-    yet and raise ``NotImplementedError``.
+    ``backward`` selects how the linear system is treated in both
+    directions: ``"exact"`` (default) iterates the routed solver to
+    convergence; ``"one_step"`` spends one preconditioned application;
+    ``"neumann_k"`` truncates the Neumann series at exactly
+    ``backward_iters`` terms; ``"jacobian_free"`` treats ``A ≈ I``.
+    ``error_estimate`` controls whether info-returning entry points
+    (``root_vjp(..., return_info=True)``,
+    ``IterativeSolver.estimate_hypergrad_error``) spend one extra matvec
+    on the relative residual.
+
+    ``system_operator`` overrides how ``A`` is *built*: a factory
+    ``(x_star, theta_args, *, symmetric) -> LinearOperator`` returning
+    the full ``A = -∂₁F(x*, θ)`` including the negation; ``symmetric`` is
+    ``True`` when the routed solver is symmetric-only, else ``None``.
+    ``B = ∂₂F`` stays exact (the stochastic layer's sampled Hessian is
+    the use).
     """
     optimality_fun: Optional[Callable] = None
     fixed_point_fun: Optional[Callable] = None
@@ -120,6 +145,9 @@ class ImplicitDiffSpec:
     has_aux: bool = False
     nondiff_argnums: Tuple[int, ...] = ()
     backward: str = "exact"
+    backward_iters: int = 8
+    error_estimate: bool = True
+    system_operator: Optional[Callable] = None
 
     def __post_init__(self):
         if self.optimality_fun is not None and \
@@ -131,7 +159,7 @@ class ImplicitDiffSpec:
             raise ValueError("nondiff_argnums are 0-based indices into the "
                              f"theta arguments; got {self.nondiff_argnums}")
         object.__setattr__(self, "nondiff_argnums", nd)
-        ls._require_exact_backward(self.backward)
+        ls.check_backward(self.backward, self.backward_iters)
 
     @property
     def residual_fun(self) -> Callable:
@@ -163,36 +191,72 @@ class ImplicitDiffSpec:
         return dict(tol=self.tol, maxiter=self.maxiter, ridge=self.ridge,
                     precond=self.precond)
 
+    def backward_kwargs(self) -> dict:
+        """The approximate-backward selection as keyword arguments."""
+        return dict(backward=self.backward,
+                    backward_iters=self.backward_iters)
+
 
 # ---------------------------------------------------------------------------
-# products with the implicit Jacobian (paper §2.1)
+# the implicit linear system (paper §2.1)
 # ---------------------------------------------------------------------------
 
 def _implicit_system_operator(F: Callable, x_star, theta_args: tuple,
-                              solve) -> ops.LinearOperator:
+                              solve, system_operator=None
+                              ) -> ops.LinearOperator:
     """``A = -∂₁F(x*, θ)`` as a ``JacobianOperator``, certified symmetric
-    when the routed solver is symmetric-only (``cg``/``pallas_cg``)."""
+    when the routed solver is symmetric-only (``cg``/``pallas_cg``); or
+    the operator the ``system_operator`` factory builds."""
     certified = solve != "auto" and ls.solver_is_symmetric(solve)
-    return ops.JacobianOperator(lambda x: F(x, *theta_args), x_star,
-                                negate=True,
-                                symmetric=True if certified else None)
+    sym = True if certified else None
+    if system_operator is None:
+        return ops.JacobianOperator(lambda x: F(x, *theta_args), x_star,
+                                    negate=True, symmetric=sym)
+    A = system_operator(x_star, theta_args, symmetric=sym)
+    if not isinstance(A, ops.LinearOperator):
+        raise TypeError("system_operator factory must return a "
+                        f"LinearOperator; got {type(A)!r}")
+    if certified and A.symmetric is False:
+        raise ValueError(
+            f"routed solver {solve!r} is symmetric-only but the "
+            "system_operator factory declared symmetric=False")
+    return A
 
 
 def _backward_apply(A, rhs, *, solve, tol, maxiter, ridge, precond,
+                    backward, backward_iters, batch_ndim: int,
                     error_estimate: bool, return_info: bool,
                     direction: str = "vjp"):
-    """Solve ``A u = rhs`` through the registry (exact backward).
+    """Apply the selected backward treatment of ``A`` to ``rhs``.
 
-    With ``return_info=True`` returns ``(u, SolveInfo)``; ``error_estimate``
-    adds the relative residual ``‖rhs − A u‖/‖rhs‖`` at one extra matvec.
-    With observability on, emits the ``backward_start``/``backward_done``
-    pair (``direction`` is "vjp" or "jvp").
+    ``backward="exact"`` routes the registry solver to convergence; the
+    approximate modes spend their fixed matvec budget through
+    ``approx_inverse_apply``.  With ``return_info=True`` both return
+    ``(u, SolveInfo)`` and, when ``error_estimate``, fill
+    ``hypergrad_error_estimate`` with ``‖rhs − A u‖/‖rhs‖`` at one extra
+    matvec (recomputed for exact solves too: normal_cg reports the normal
+    equations' residual).  With observability on, emits the
+    ``backward_start``/``backward_done`` pair (``direction`` is "vjp" or
+    "jvp").
     """
     observing = obs_events.observing()
+    tags = {"direction": direction, "backward": backward,
+            "matvec_budget": (-1 if backward == "exact" else
+                              ls.approx_matvec_count(backward,
+                                                     backward_iters)),
+            "solver": solve if isinstance(solve, str) else "custom"}
+    # custom exact-solve callables own their diagnostics (route_solve
+    # rejects return_info for them): they get start/done without values
+    can_force = backward != "exact" or not callable(solve)
     want_info = return_info
-    if observing and not callable(solve):
-        return_info = True
-    if not return_info:
+    if observing:
+        return_info = return_info or can_force
+    if backward != "exact":
+        out = ls.approx_inverse_apply(
+            A, rhs, backward=backward, backward_iters=backward_iters,
+            ridge=ridge, precond=precond, batch_ndim=batch_ndim, tol=tol,
+            error_estimate=error_estimate, return_info=return_info)
+    elif not return_info:
         out = ls.route_solve(solve, A, rhs, tol=tol, maxiter=maxiter,
                              ridge=ridge, precond=precond)
     else:
@@ -201,14 +265,12 @@ def _backward_apply(A, rhs, *, solve, tol, maxiter, ridge, precond,
                                  return_info=True)
         if error_estimate:
             mv = ls._damped(A, ridge)
-            rn = ls._tree_l2(ls._tree_sub(rhs, mv(u)), 0)
-            est = rn / torch.clamp_min(ls._tree_l2(rhs, 0), 1e-30)
+            rn = ls._tree_l2(ls._tree_sub(rhs, mv(u)), batch_ndim)
+            est = rn / torch.clamp_min(ls._tree_l2(rhs, batch_ndim), 1e-30)
             info = info._replace(hypergrad_error_estimate=est)
         out = (u, info)
     if not observing:
         return out
-    tags = {"direction": direction, "backward": "exact", "matvec_budget": -1,
-            "solver": solve if isinstance(solve, str) else "custom"}
     if return_info:
         u, info = out
         extra = ({"hypergrad_error_estimate": info.hypergrad_error_estimate}
@@ -222,58 +284,236 @@ def _backward_apply(A, rhs, *, solve, tol, maxiter, ridge, precond,
     return out
 
 
-def root_vjp(F: Callable, x_star, theta_args: tuple, cotangent,
-             solve="normal_cg", tol: float = 1e-6, maxiter: int = 1000,
-             ridge: float = 0.0, precond=None, backward: str = "exact",
-             error_estimate: bool = False, return_info: bool = False):
-    """VJP through the implicitly-defined root: returns vᵀ ∂x*(θ) per θ arg.
+class _System:
+    """One implicit linear system of ``root_vjp`` / ``root_jvp``: how A is
+    built (``F`` at ``x*``, θ) and treated, and the trees ``(x*, θ, rhs)``
+    whose tensors cross ``_SystemSolve``.  ``transpose`` solves
+    ``Aᵀ u = rhs`` (the cotangent system)."""
 
-    Solve Aᵀ u = v  (A = -∂₁F),  then  vᵀJ = uᵀB  (B = ∂₂F): one linear
-    solve serves all theta arguments.  ``theta_args`` are pytrees of
-    tensors.  ``return_info=True`` returns ``(grads, SolveInfo)``.
+    def __init__(self, F, x_star, theta_args, rhs, *, transpose, solve,
+                 tol, maxiter, ridge, precond, backward, backward_iters,
+                 error_estimate, return_info, system_operator, direction):
+        self.F, self.transpose, self.solve = F, transpose, solve
+        self.system_operator, self.direction = system_operator, direction
+        self.kw = dict(solve=solve, tol=tol, maxiter=maxiter, ridge=ridge,
+                       precond=precond, backward=backward,
+                       backward_iters=backward_iters,
+                       error_estimate=error_estimate)
+        self.return_info = return_info
+        self.flat = Flat(x_star, tuple(theta_args), rhs)
+        self.info_fields = None
+
+    def operator(self, x_star, theta) -> ops.LinearOperator:
+        """The matrix of the system (A, or Aᵀ) at one instance."""
+        A = _implicit_system_operator(self.F, x_star, theta, self.solve,
+                                      self.system_operator)
+        return A.T if self.transpose else A
+
+    def apply(self, M, rhs, batch_ndim: int) -> tuple:
+        """Solve with ``M``; the flat outputs: u's leaves, then the tensor
+        fields of the ``SolveInfo`` when it was asked for."""
+        out = _backward_apply(M, rhs, batch_ndim=batch_ndim,
+                              return_info=self.return_info,
+                              direction=self.direction, **self.kw)
+        u, info = out if self.return_info else (out, None)
+        flat = tree_flatten(u)[0]
+        if info is not None:
+            self.info_fields = [f for f, v in zip(info._fields, info)
+                                if v is not None]
+            flat += [getattr(info, f) for f in self.info_fields]
+        return tuple(flat)
+
+    def unpack(self, flat):
+        """``(u, SolveInfo | None)`` from ``apply``'s flat outputs."""
+        n = self.flat.counts[2]
+        u = tree_unflatten(list(flat[:n]), self.flat.parts[2][1])
+        if not self.return_info:
+            return u, None
+        return u, ls.SolveInfo(**dict(zip(self.info_fields, flat[n:])))
+
+
+class _BatchedSystem(ops.LinearOperator):
+    """A batch of implicit systems as one batch-aware operator
+    (``batch_ndim=1``), for ``_SystemSolve``'s ``vmap`` rule.
+
+    Each product is a ``torch.func.vmap`` of the per-instance one over the
+    instances whose x* or θ carry the batch axis (``dims``).  When none
+    does (a ``jacrev``: one operator, many right-hand sides) the one
+    operator is shared: it is built once, materialized once and expanded
+    as a view.  ``materialize`` / ``diagonal`` run with the instances
+    outermost, the probing basis inside, so that batched data enters its
+    products once and is never copied per basis vector.
     """
-    ls._require_exact_backward(backward)
-    x_star = canonical(x_star)
-    A = _implicit_system_operator(F, x_star, theta_args, solve)
-    out = _backward_apply(A.T, canonical(cotangent), solve=solve, tol=tol,
-                          maxiter=maxiter, ridge=ridge, precond=precond,
-                          error_estimate=error_estimate,
-                          return_info=return_info, direction="vjp")
-    u, info = out if return_info else (out, None)
 
-    # uᵀ B = uᵀ ∂₂F : one more VJP, wrt the theta args
-    _, vjp_theta = torch.func.vjp(
-        lambda *targs: canonical(F(x_star, *targs)), *theta_args)
-    return ls._maybe_info(vjp_theta(u), info, return_info)
+    def __init__(self, system: _System, args, dims, example):
+        self.system, self.args, self.dims = system, args, dims
+        self.shared = all(d is None for d in tree_leaves(dims))
+        first = [tree_map(lambda t, d: t if d is None else t[0], a, ds)
+                 for a, ds in zip(args, dims)]
+        self.M0 = system.operator(*first)
+        super().__init__(example, batch_ndim=1, symmetric=self.M0.symmetric,
+                         positive_definite=self.M0.positive_definite)
+        self.B = tree_leaves(example)[0].shape[0]
+
+    def _each(self, fn, *batched):
+        """``fn(M_i, *args_i)`` for every instance, stacked on axis 0."""
+        if self.shared:
+            return torch.func.vmap(lambda *a: fn(self.M0, *a))(*batched)
+        op = self.system.operator
+        return torch.func.vmap(
+            lambda x, th, *a: fn(op(x, th), *a),
+            in_dims=tuple(self.dims) + (0,) * len(batched))(*self.args,
+                                                            *batched)
+
+    def matvec(self, v):
+        """Each instance's product with its slice of ``v``."""
+        return self._each(lambda M, vi: M.matvec(vi), v)
+
+    def rmatvec(self, v):
+        """Each instance's adjoint product with its slice of ``v``."""
+        return self._each(lambda M, vi: M.rmatvec(vi), v)
+
+    def materialize(self) -> torch.Tensor:
+        """``(B, d, d)``: instances outermost (see the class docstring)."""
+        if self.shared:
+            A = self.M0.materialize()
+            return A.expand((self.B,) + tuple(A.shape))
+        return self._each(lambda M: M.materialize())
+
+    def diagonal(self):
+        """Each instance's diagonal, stacked on axis 0."""
+        if self.shared:
+            return tree_map(lambda dg: dg.expand((self.B,) + tuple(dg.shape)),
+                            self.M0.diagonal())
+        return self._each(lambda M: M.diagonal())
 
 
-def root_jvp(F: Callable, x_star, theta_args: tuple, tangents: tuple,
-             solve="normal_cg", tol: float = 1e-6, maxiter: int = 1000,
-             ridge: float = 0.0, precond=None, backward: str = "exact",
-             error_estimate: bool = False, return_info: bool = False):
-    """JVP through the implicitly-defined root: J · v.
+class _SystemSolve(torch.autograd.Function):
+    """The solve of one ``_System`` as a Function.  Its ``vmap`` rule runs
+    a whole batch of systems as ONE registry solve (``_BatchedSystem``).
+    Being a Function, the solve's iterations are never recorded — under
+    ``torch.func.grad``, which keeps the backward's graph, they would hold
+    every iteration's intermediates — and it is not differentiated again:
+    a second derivative through it raises."""
 
-    Solve A (Jv) = B v  with  Bv = ∂₂F · v  computed by one JVP of F in θ.
-    """
-    ls._require_exact_backward(backward)
-    x_star = canonical(x_star)
-    _, Bv = torch.func.jvp(lambda *targs: canonical(F(x_star, *targs)),
-                           tuple(theta_args), tuple(tangents))
-    A = _implicit_system_operator(F, x_star, theta_args, solve)
-    return _backward_apply(A, Bv, solve=solve, tol=tol, maxiter=maxiter,
-                           ridge=ridge, precond=precond,
-                           error_estimate=error_estimate,
-                           return_info=return_info, direction="jvp")
+    @staticmethod
+    def forward(system, *tensors):
+        x_star, theta, rhs = system.flat.trees(tensors)
+        return system.apply(system.operator(x_star, theta), rhs, 0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "a derivative of the implicit linear solve (a second derivative "
+            "through implicit_diff, root_vjp or root_jvp) is not supported "
+            "by the PyTorch port")
+
+    @staticmethod
+    def vmap(info, in_dims, system, *tensors):
+        tensors, dims = batch_first(tensors, in_dims[1:])
+        x_star, theta, rhs = system.flat.trees(tensors)
+        x_dims, th_dims, rhs_dims = system.flat.dims(dims)
+        rhs = tree_map(lambda r, d: r if d is not None else
+                       r.expand((info.batch_size,) + tuple(r.shape)),
+                       rhs, rhs_dims)
+        op = _BatchedSystem(system, (x_star, theta), (x_dims, th_dims), rhs)
+        out = system.apply(op, rhs, 1)
+        return out, (0,) * len(out)
 
 
-# ---------------------------------------------------------------------------
-# the wrapper: one autograd.Function for both modes
-# ---------------------------------------------------------------------------
+def _solve_system(F, x_star, theta_args, rhs, **kw):
+    """``(u, SolveInfo | None)`` of the implicit system (see ``_System``)."""
+    system = _System(F, x_star, theta_args, rhs, **kw)
+    return system.unpack(_SystemSolve.apply(system, *system.flat.tensors))
+
 
 def _is_diff_leaf(leaf) -> bool:
     return isinstance(leaf, torch.Tensor) and \
         (leaf.is_floating_point() or leaf.is_complex())
 
+
+def _of_diff_leaves(F: Callable, x_star, theta_args: tuple):
+    """``F(x*, θ)`` as a function of θ's floating-point tensor leaves:
+    ``(F_of, those leaves, their slots, θ's leaves, θ's tree spec)``."""
+    leaves, spec = tree_flatten(tuple(theta_args))
+    slots = [i for i, leaf in enumerate(leaves) if _is_diff_leaf(leaf)]
+
+    def F_of(*diff):
+        full = list(leaves)
+        for i, t in zip(slots, diff):
+            full[i] = t
+        return canonical(F(x_star, *tree_unflatten(full, spec)))
+
+    return F_of, [leaves[i] for i in slots], slots, leaves, spec
+
+
+def _theta_vjp(F: Callable, x_star, theta_args: tuple, u) -> tuple:
+    """``uᵀ ∂₂F`` per θ argument: one ``torch.func.vjp`` in θ's
+    floating-point tensor leaves; any other leaf gets ``None``."""
+    F_of, primals, slots, leaves, spec = _of_diff_leaves(F, x_star,
+                                                         theta_args)
+    _, vjp_fun = torch.func.vjp(F_of, *primals)
+    grads = [None] * len(leaves)
+    for i, g in zip(slots, vjp_fun(canonical(u))):
+        grads[i] = g
+    return tuple(tree_unflatten(grads, spec))
+
+
+def root_vjp(F: Callable, x_star, theta_args: tuple, cotangent,
+             solve="normal_cg", tol: float = 1e-6, maxiter: int = 1000,
+             ridge: float = 0.0, precond=None, backward: str = "exact",
+             backward_iters: int = 8, error_estimate: bool = False,
+             return_info: bool = False, system_operator=None):
+    """VJP through the implicitly-defined root: returns vᵀ ∂x*(θ) per θ arg.
+
+    Solve Aᵀ u = v  (A = -∂₁F),  then  vᵀJ = uᵀB  (B = ∂₂F): one linear
+    solve serves all theta arguments.  ``backward`` swaps the converged
+    solve for a fixed-budget approximation (see ``approx_inverse_apply``).
+    ``return_info=True`` returns ``(grads, SolveInfo)``; with
+    ``error_estimate=True`` it carries ``hypergrad_error_estimate =
+    ‖v − Aᵀu‖/‖v‖``.  Under ``torch.func.vmap`` the batch is ONE solve.
+    """
+    x_star = canonical(x_star)
+    u, info = _solve_system(
+        F, x_star, theta_args, canonical(cotangent), transpose=True,
+        solve=solve, tol=tol, maxiter=maxiter, ridge=ridge, precond=precond,
+        backward=backward, backward_iters=backward_iters,
+        error_estimate=error_estimate, return_info=return_info,
+        system_operator=system_operator, direction="vjp")
+    return ls._maybe_info(_theta_vjp(F, x_star, theta_args, u), info,
+                          return_info)
+
+
+def root_jvp(F: Callable, x_star, theta_args: tuple, tangents: tuple,
+             solve="normal_cg", tol: float = 1e-6, maxiter: int = 1000,
+             ridge: float = 0.0, precond=None, backward: str = "exact",
+             backward_iters: int = 8, error_estimate: bool = False,
+             return_info: bool = False, system_operator=None):
+    """JVP through the implicitly-defined root: J · v.
+
+    Solve A (Jv) = B v  with  Bv = ∂₂F · v  computed by one JVP of F in θ.
+    ``backward`` / ``backward_iters`` / ``error_estimate`` /
+    ``return_info`` mirror ``root_vjp`` on the tangent system.
+    """
+    x_star = canonical(x_star)
+    _, Bv = torch.func.jvp(lambda *targs: canonical(F(x_star, *targs)),
+                           tuple(theta_args), tuple(tangents))
+    u, info = _solve_system(
+        F, x_star, theta_args, Bv, transpose=False, solve=solve, tol=tol,
+        maxiter=maxiter, ridge=ridge, precond=precond, backward=backward,
+        backward_iters=backward_iters, error_estimate=error_estimate,
+        return_info=return_info, system_operator=system_operator,
+        direction="jvp")
+    return ls._maybe_info(u, info, return_info)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper: one autograd.Function for both modes
+# ---------------------------------------------------------------------------
 
 def _check_solver_arity(spec: ImplicitDiffSpec, n_theta: int):
     if spec.nondiff_argnums and spec.nondiff_argnums[-1] >= n_theta:
@@ -283,100 +523,124 @@ def _check_solver_arity(spec: ImplicitDiffSpec, n_theta: int):
 
 
 class _Call:
-    """One call of a wrapped solver: the θ arguments split into the
-    floating-point tensor leaves the derivatives flow to and everything
-    else (nondiff arguments, non-tensor and integer leaves), plus what the
-    forward produced (the x* tree spec, the aux)."""
+    """One call of a wrapped solver.  Its tensors — ``init``'s, then those
+    of the θ arguments outside ``nondiff_argnums`` — are the Function's
+    inputs, so that a ``vmap`` rule sees every batch axis; the
+    floating-point ones among θ's are what the derivatives flow to.
+    Everything else (nondiff arguments, non-tensor leaves) and what the
+    forward produced (x*'s and aux's structure and static leaves) stays
+    here."""
 
     def __init__(self, spec: ImplicitDiffSpec, solver: Callable, mode: str,
                  init, theta: tuple):
-        self.spec, self.solver, self.mode, self.init = spec, solver, mode, init
-        self.theta = theta
-        self.slots = []          # per theta arg: (leaves, treespec) or None
-        diff_leaves = []
-        for i, arg in enumerate(theta):
-            if i in spec.nondiff_argnums:
-                self.slots.append(None)
-                continue
-            leaves, treespec = tree_flatten(arg)
-            self.slots.append((leaves, treespec))
-            diff_leaves += [leaf for leaf in leaves if _is_diff_leaf(leaf)]
-        self.diff_leaves = diff_leaves
-        self.x_spec = None
-        self.aux = None
+        self.spec, self.solver, self.mode, self.theta = \
+            spec, solver, mode, theta
+        self.init = Flat(init)
+        self.args = Flat(*(arg for i, arg in enumerate(theta)
+                           if i not in spec.nondiff_argnums))
+        self.n_init = len(self.init.tensors)
+        self.tensors = self.init.tensors + self.args.tensors
+        self.x = self.aux = None
 
-    def theta_with(self, diff_leaves) -> tuple:
-        """The θ arguments with their differentiable leaves replaced."""
-        it = iter(diff_leaves)
-        out = []
-        for arg, slot in zip(self.theta, self.slots):
-            if slot is None:
-                out.append(arg)
-                continue
-            leaves, treespec = slot
-            out.append(tree_unflatten(
-                [next(it) if _is_diff_leaf(leaf) else leaf
-                 for leaf in leaves], treespec))
-        return tuple(out)
+    def rebuild(self, tensors):
+        """``(init, theta)`` with the Function's inputs put back."""
+        return (self.init.trees(tensors[:self.n_init])[0],
+                self.theta_with(tensors[self.n_init:]))
 
-    def residual_of_leaves(self) -> Callable:
-        """F(x, *diff_leaves): the residual with θ rebuilt from leaves."""
+    def theta_with(self, theta_tensors) -> tuple:
+        """The θ arguments with their tensor leaves replaced."""
+        args = iter(self.args.trees(theta_tensors))
+        return tuple(arg if i in self.spec.nondiff_argnums else next(args)
+                     for i, arg in enumerate(self.theta))
+
+    def residual(self) -> Callable:
+        """F(x, *theta_tensors): the residual with θ rebuilt from tensors."""
         residual = self.spec.residual_fun
-        return lambda x, *leaves: residual(x, *self.theta_with(leaves))
+        return lambda x, *tensors: residual(x, *self.theta_with(tensors))
 
 
 class _ImplicitFunction(torch.autograd.Function):
-    """x*(θ) with the implicit-function-theorem derivative in both modes."""
+    """x*(θ) with the implicit-function-theorem derivative in both modes;
+    the outputs are x*'s leaves, then aux's tensor leaves."""
 
     @staticmethod
-    def forward(call: _Call, *diff_leaves):
-        out = call.solver(call.init, *call.theta_with(diff_leaves))
-        x_star = out[0] if call.spec.has_aux else out
-        call.aux = out[1] if call.spec.has_aux else None
-        x_leaves, call.x_spec = tree_flatten(x_star)
-        return tuple(leaf.detach() for leaf in x_leaves)
+    def forward(call: _Call, *tensors):
+        init, theta = call.rebuild(tensors)
+        out = call.solver(init, *theta)
+        call.x = Flat(out[0] if call.spec.has_aux else out)
+        call.aux = Flat(out[1] if call.spec.has_aux else None)
+        return tuple(t.detach() for t in call.x.tensors + call.aux.tensors)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.call = inputs[0]
-        ctx.n_theta = len(inputs) - 1
-        ctx.save_for_backward(*inputs[1:], *output)
-        ctx.save_for_forward(*inputs[1:], *output)
+        call = inputs[0]
+        ctx.call = call
+        ctx.n_x = len(call.x.tensors)
+        theta_tensors = inputs[1 + call.n_init:]
+        ctx.n_theta = len(theta_tensors)
+        ctx.mark_non_differentiable(*output[ctx.n_x:])
+        ctx.save_for_backward(*theta_tensors, *output[:ctx.n_x])
+        ctx.save_for_forward(*theta_tensors, *output[:ctx.n_x])
+
+    @staticmethod
+    def vmap(info, in_dims, call, *tensors):
+        # the forward of a batch: the solver itself under torch.func.vmap
+        # (run()'s loop takes a batch through its own vmap rule)
+        out = torch.func.vmap(
+            lambda *ts: _ImplicitFunction.forward(call, *ts),
+            in_dims=in_dims[1:], randomness=info.randomness)(*tensors)
+        return out, (0,) * len(out)
 
     @staticmethod
     def _split(ctx):
         saved = ctx.saved_tensors
         leaves = tuple(saved[:ctx.n_theta])
-        x_star = tree_unflatten(list(saved[ctx.n_theta:]), ctx.call.x_spec)
+        x_star = ctx.call.x.trees(saved[ctx.n_theta:])[0]
         return leaves, x_star
 
     @staticmethod
-    def backward(ctx, *x_bar):
+    def backward(ctx, *grads):
         call = ctx.call
         if call.mode == "jvp":
             raise RuntimeError("this solver was wrapped with mode='jvp' "
                                "(forward mode only); reverse mode is not "
                                "available — wrap with mode='auto' or 'vjp'")
         leaves, x_star = _ImplicitFunction._split(ctx)
-        ct = tree_unflatten(list(x_bar), call.x_spec)
-        grads = root_vjp(call.residual_of_leaves(), x_star, leaves, ct,
-                         solve=call.spec.solve,
-                         **call.spec.routing_kwargs())
-        return (None,) + tuple(grads)
+        ct = call.x.trees(grads[:ctx.n_x])[0]
+        F = call.residual()
+        spec = call.spec
+        u, _ = _solve_system(
+            F, x_star, leaves, ct, transpose=True, solve=spec.solve,
+            backward=spec.backward, backward_iters=spec.backward_iters,
+            error_estimate=False, return_info=False,
+            system_operator=spec.system_operator, direction="vjp",
+            **spec.routing_kwargs())
+        # integer θ tensors get None, as _theta_vjp gives any such leaf
+        grads = _theta_vjp(F, x_star, leaves, u)
+        return (None,) * (1 + call.n_init) + tuple(grads)
 
     @staticmethod
-    def jvp(ctx, _call_dot, *theta_dot):
+    def jvp(ctx, _call_dot, *dots):
         call = ctx.call
         if call.mode == "vjp":
             raise RuntimeError("this solver was wrapped with mode='vjp' "
                                "(reverse mode only); forward mode is not "
                                "available — wrap with mode='auto' or 'jvp'")
         leaves, x_star = _ImplicitFunction._split(ctx)
-        tangents = tuple(torch.zeros_like(leaf) if t is None else t
-                         for leaf, t in zip(leaves, theta_dot))
-        dx = root_jvp(call.residual_of_leaves(), x_star, leaves, tangents,
-                      solve=call.spec.solve, **call.spec.routing_kwargs())
-        return tuple(tree_flatten(dx)[0])
+        F = call.residual()
+        theta_dot = dots[call.n_init:]
+        F_of, primals, slots, _, _ = _of_diff_leaves(F, x_star, leaves)
+        _, Bv = torch.func.jvp(F_of, tuple(primals), tuple(
+            torch.zeros_like(leaves[i]) if theta_dot[i] is None
+            else theta_dot[i] for i in slots))
+        spec = call.spec
+        dx, _ = _solve_system(
+            F, x_star, leaves, Bv, transpose=False, solve=spec.solve,
+            backward=spec.backward, backward_iters=spec.backward_iters,
+            error_estimate=False, return_info=False,
+            system_operator=spec.system_operator, direction="jvp",
+            **spec.routing_kwargs())
+        return tuple(tree_flatten(dx)[0]) + (None,) * len(call.aux.tensors)
 
 
 MODES = ("auto", "vjp", "jvp")
@@ -390,7 +654,9 @@ def implicit_diff(spec: Union[ImplicitDiffSpec, Callable, None] = None, *,
     signature ``(init, *theta)`` whose derivatives in the differentiable
     ``theta`` arguments come from the implicit function theorem on the
     spec's optimality mapping — never from differentiating through the
-    solver's iterations.
+    solver's iterations.  ``torch.func.vmap`` of the function, of its
+    gradient or of its JVP runs the linear solve of the whole batch as one
+    registry solve.
 
     ``spec`` may be an ``ImplicitDiffSpec``, a bare callable (treated as
     ``optimality_fun``), or ``None`` with the spec's fields given as
@@ -420,9 +686,12 @@ def implicit_diff(spec: Union[ImplicitDiffSpec, Callable, None] = None, *,
         def fun(init, *theta):
             _check_solver_arity(spec, len(theta))
             call = _Call(spec, solver, mode, init, theta)
-            x_leaves = _ImplicitFunction.apply(call, *call.diff_leaves)
-            x_star = tree_unflatten(list(x_leaves), call.x_spec)
-            return (x_star, call.aux) if spec.has_aux else x_star
+            out = _ImplicitFunction.apply(call, *call.tensors)
+            n_x = len(call.x.tensors)
+            x_star = call.x.trees(out[:n_x])[0]
+            if spec.has_aux:
+                return x_star, call.aux.trees(out[n_x:])[0]
+            return x_star
 
         fun.spec = spec
         fun.mode = mode

@@ -14,27 +14,34 @@ Registry (``SolverSpec``; see ``available_solvers()``):
 
   * ``cg``          — conjugate gradient (A symmetric PSD; preconditioned)
   * ``normal_cg``   — CG on the normal equations AᵀA x = Aᵀ b (general A)
+  * ``bicgstab``    — BiCGSTAB (general square A)
+  * ``gmres``       — restarted GMRES (general square A; left-preconditioned)
   * ``dense_gmres`` — batched GMRES on materialized per-instance operators
                       (the nonsymmetric dense small-system regime, d ≤ 512)
   * ``lu``          — dense direct solve (materializes A)
+  * ``neumann``     — truncated Neumann series for I - M with ||M|| < 1
   * ``pallas_cg``   — the batched-CG kernel for the dense SPD regime
                       (d ≤ 512): on CUDA tensors the hand-written Hopper
                       kernel of ``repro_torch.kernels.batched_cg``; the
                       name is kept so routing matches the JAX package
 
-``bicgstab``, ``gmres``, ``neumann``, ``approx_inverse_apply`` and the
-``sharded_*`` solvers are not ported yet (ROADMAP queue A.3); neither are
-the ``"block_jacobi"`` preconditioner and the approximate backward modes
-(``BACKWARD_MODES`` is kept as the constant).
+The approximate backward modes (``one_step``, ``neumann_k``,
+``jacobian_free``) apply a fixed polynomial in A through
+``approx_inverse_apply``.  The ``sharded_*`` solvers are not ported yet
+(ROADMAP queue A.11).
 
 Batching: ``solve(matvec, b, batch_axes=0, ...)`` with a ``matvec`` that
 maps batched pytrees to batched pytrees, or a batch-aware operator
-(``batch_ndim == 1``) through ``route_solve``.
+(``batch_ndim == 1``) through ``route_solve``.  The loops read the host,
+so they do not run under ``torch.func.vmap`` themselves: the
+implicit-diff layer's ``vmap`` rule hands them such a batch-aware
+operator instead.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -135,6 +142,15 @@ def _as_probe_operator(matvec, example, batch_ndim: int) -> LinearOperator:
     return operators.FunctionOperator(matvec, example, batch_ndim=batch_ndim)
 
 
+def materialize_matrix(matvec: Callable, example_x) -> torch.Tensor:
+    """Densify a matvec to its (d, d) matrix (diagnostics / direct solve).
+
+    A ``LinearOperator`` materializes itself (O(1) for dense/structured
+    operators); bare closures are probed with basis vectors.
+    """
+    return _as_probe_operator(matvec, example_x, 0).materialize()
+
+
 def materialize_batched(matvec: Callable, b, batch_ndim: int = 0,
                         view: Optional[RavelView] = None):
     """Densify a (possibly batched) operator to (B, d, d) plus the flat view.
@@ -160,11 +176,15 @@ def diagonal_of_matvec(matvec: Callable, b, batch_ndim: int = 0):
     return _as_probe_operator(matvec, b, batch_ndim).diagonal()
 
 
-def _resolve_precond(precond, matvec, b, batch_ndim: int, diag=None):
-    """None | callable | "jacobi" -> callable M⁻¹ (or None).
+def _resolve_precond(precond, matvec, b, batch_ndim: int, diag=None,
+                     materialized=None):
+    """None | callable | "jacobi" | "block_jacobi" -> callable M⁻¹ (or None).
 
-    ``diag`` short-circuits the operator probing when the caller already
-    holds the diagonal (the dense-regime solvers materialize anyway).
+    ``diag``/``materialized`` short-circuit the operator probing when the
+    caller already holds the diagonal or the dense matrix (the
+    dense-regime solvers materialize anyway).  ``"block_jacobi"`` needs a
+    ``LinearOperator`` (the domain's pytree leaves — or a
+    ``BlockDiagonal``'s blocks — define the blocks).
     """
     if precond is None or callable(precond):
         return precond
@@ -173,9 +193,12 @@ def _resolve_precond(precond, matvec, b, batch_ndim: int, diag=None):
             diag = diagonal_of_matvec(matvec, b, batch_ndim)
         return jacobi_preconditioner(diag)
     if precond == "block_jacobi":
-        raise NotImplementedError(
-            "precond='block_jacobi' is not ported yet (ROADMAP queue A.2); "
-            "use 'jacobi' or a callable M⁻¹")
+        if not isinstance(matvec, LinearOperator):
+            raise ValueError("precond='block_jacobi' derives blocks from "
+                             "operator structure; pass a LinearOperator "
+                             "(or use 'jacobi' / a callable M⁻¹)")
+        return operators.block_jacobi_preconditioner(
+            matvec, materialized=materialized)
     raise ValueError(f"unknown preconditioner {precond!r}; expected None, "
                      "a callable M⁻¹, 'jacobi', or 'block_jacobi'")
 
@@ -188,8 +211,10 @@ class SolveInfo(NamedTuple):
     """Per-instance diagnostics (batch-shaped under ``batch_axes``).
 
     ``iterations`` counts the solver's outer steps: matvec iterations for
-    cg/normal_cg, *restart cycles* for dense_gmres, 0 for direct solves,
-    -1 when untracked (pallas_cg).
+    cg/normal_cg/bicgstab, *restart cycles* (each up to ``restart``
+    Arnoldi steps) for gmres/dense_gmres, series terms for neumann, the
+    matvec budget for the approximate backward modes, 0 for direct
+    solves, -1 when untracked (pallas_cg).
     """
     iterations: torch.Tensor    # outer steps actually spent per instance
     residual: torch.Tensor      # final ||b - A x|| per instance
@@ -287,6 +312,77 @@ def solve_normal_cg(matvec: Callable, b, *, init=None, rmatvec=None,
 
 
 # ---------------------------------------------------------------------------
+# BiCGSTAB (masked)
+# ---------------------------------------------------------------------------
+
+def solve_bicgstab(matvec: Callable, b, *, init=None, tol: float = 1e-6,
+                   maxiter: int = 1000, ridge: float = 0.0, precond=None,
+                   return_info: bool = False, batch_ndim: int = 0):
+    """BiCGSTAB (van der Vorst, 1992) for general square operators.
+
+    ``precond`` applies as a left preconditioner (wraps the operator); the
+    loop iterates on the preconditioned residual, but ``SolveInfo`` always
+    reports the TRUE residual ||b - A x||.  Per-instance done/breakdown
+    masks inside one loop for the batch.
+    """
+    nb = batch_ndim
+    b = canonical(b)
+    matvec = _damped(matvec, ridge)
+    matvec0, b0 = matvec, b
+    M = _resolve_precond(precond, matvec, b, nb)
+    if M is not None:
+        inner = matvec
+        matvec = lambda v: M(inner(v))
+        b = M(b)
+    x = _tree_zeros_like(b) if init is None else canonical(init)
+    r = _tree_sub(b, matvec(x))
+    rhat = p = r
+    b_norm = _tree_l2(b, nb)
+    atol = torch.clamp_min(tol * b_norm, 1e-30)
+    rnorm = _tree_l2(r, nb)
+    done = rnorm <= atol
+    rho = _tree_dot(rhat, r, nb)
+    it = torch.zeros_like(b_norm, dtype=torch.int32)
+
+    k = 0
+    while k < maxiter and not bool(torch.all(done)):
+        v = matvec(p)
+        denom = _tree_dot(rhat, v, nb)
+        breakdown = denom == 0
+        alpha = _where(breakdown, 0.0, rho / _where(breakdown, 1.0, denom))
+        h = _tree_add(x, p, alpha, nb)
+        s = _tree_add(r, v, -alpha, nb)
+        t = matvec(s)
+        tt = _tree_dot(t, t, nb)
+        omega = _where(tt == 0, 0.0,
+                       _tree_dot(t, s, nb) / _where(tt == 0, 1.0, tt))
+        x1 = _tree_add(h, s, omega, nb)
+        r1 = _tree_add(s, t, -omega, nb)
+        rho1 = _tree_dot(rhat, r1, nb)
+        beta = (rho1 / _where(rho == 0, 1.0, rho)) * \
+            (alpha / _where(omega == 0, 1.0, omega))
+        p1 = _tree_add(r1, _tree_add(p, v, -omega, nb), beta, nb)
+        rn1 = _tree_l2(r1, nb)
+        breakdown = breakdown | (rho == 0)
+        # freeze instances that were already done at loop entry
+        x = _tree_freeze(done, x, x1, nb)
+        r = _tree_freeze(done, r, r1, nb)
+        p = _tree_freeze(done, p, p1, nb)
+        rho = torch.where(done, rho, rho1)
+        rnorm = torch.where(done, rnorm, rn1)
+        it = it + (~done).to(torch.int32)
+        done = done | (rnorm <= atol) | breakdown
+        k += 1
+    if not return_info:
+        return x
+    rn, cutoff = rnorm, atol
+    if M is not None:   # report the true residual, not M(b - A x)
+        rn = _tree_l2(_tree_sub(b0, matvec0(x)), nb)
+        cutoff = torch.clamp_min(tol * _tree_l2(b0, nb), 1e-30)
+    return x, SolveInfo(iterations=it, residual=rn, converged=rn <= cutoff)
+
+
+# ---------------------------------------------------------------------------
 # GMRES (restarted; flat (B, d) core, masked restarts)
 # ---------------------------------------------------------------------------
 
@@ -356,6 +452,42 @@ def _gmres_flat(mv: Callable, b_flat, x0, *, tol: float, restart: int,
     return x, rn, it, atol
 
 
+def solve_gmres(matvec: Callable, b, *, init=None, tol: float = 1e-6,
+                restart: int = 20, maxiter: int = 1000, ridge: float = 0.0,
+                precond=None, return_info: bool = False, batch_ndim: int = 0):
+    """Restarted GMRES.  Flattens instances to run batched Arnoldi cycles.
+
+    ``maxiter`` is the total matvec budget, like the other iterative
+    solvers; the cycle cap is ``ceil(maxiter / restart)``.  ``precond``
+    applies as a left preconditioner; ``SolveInfo`` always reports the
+    TRUE residual.  Converged instances skip further cycles.
+    """
+    b = canonical(b)
+    matvec = _damped(matvec, ridge)
+    matvec0, b0 = matvec, b
+    M = _resolve_precond(precond, matvec, b, batch_ndim)
+    if M is not None:
+        inner = matvec
+        matvec = lambda v: M(inner(v))
+        b = M(b)
+
+    view = ravel_view(matvec, b, batch_ndim)
+    x0 = _flat_init(init, view.b, batch_ndim)
+    x, rn, it, atol = _gmres_flat(view.mv, view.b, x0, tol=tol,
+                                  restart=restart, maxiter=maxiter)
+    x_tree = view.to_tree(x)
+    if not return_info:
+        return x_tree
+    cutoff = atol
+    if M is not None:   # report the true residual, not M(b - A x)
+        rn = _tree_l2(_tree_sub(b0, matvec0(x_tree)), batch_ndim)
+        cutoff = torch.clamp_min(tol * _tree_l2(b0, batch_ndim), 1e-30)
+    info = SolveInfo(iterations=it, residual=rn, converged=rn <= cutoff)
+    if batch_ndim == 0:
+        info = _squeeze_info(info)
+    return x_tree, info
+
+
 def solve_dense_gmres(matvec: Callable, b, *, init=None, tol: float = 1e-6,
                       restart: int = 20, maxiter: int = 1000,
                       ridge: float = 0.0, precond=None,
@@ -382,7 +514,8 @@ def solve_dense_gmres(matvec: Callable, b, *, init=None, tol: float = 1e-6,
 
     M_tree = _resolve_precond(
         precond, matvec, b, batch_ndim,
-        diag=view.to_tree(torch.diagonal(A, dim1=-2, dim2=-1)))
+        diag=view.to_tree(torch.diagonal(A, dim1=-2, dim2=-1)),
+        materialized=A if view.batched else A[0])
     if M_tree is None:
         M_flat = None
     elif view.batched:
@@ -410,7 +543,7 @@ def solve_dense_gmres(matvec: Callable, b, *, init=None, tol: float = 1e-6,
 
 
 # ---------------------------------------------------------------------------
-# Direct
+# Direct and Neumann
 # ---------------------------------------------------------------------------
 
 def solve_lu(matvec: Callable, b, *, init=None, tol: float = 1e-6,
@@ -435,22 +568,153 @@ def solve_lu(matvec: Callable, b, *, init=None, tol: float = 1e-6,
     return view.to_tree(x)
 
 
+def solve_neumann(matvec: Callable, b, *, init=None, maxiter: int = 10,
+                  tol: float = 0.0, ridge: float = 0.0,
+                  return_info: bool = False, batch_ndim: int = 0, **_):
+    """Approximate (I - M)⁻¹ b ≈ Σ_{k<K} Mᵏ b where matvec(v) = v - M v.
+
+    Interprets ``matvec`` as A = I - M and truncates the Neumann series
+    ("Jacobian-free" / phantom-gradient style).  ``ridge`` damps A like the
+    other solvers.  Instances whose series term drops below tolerance
+    freeze while stragglers keep summing, and the loop ends once the whole
+    batch is done.  The local default ``tol=0`` keeps the fixed-K
+    truncation; ``solve()`` forwards its tol.
+    """
+    del init
+    nb = batch_ndim
+    b = canonical(b)
+    matvec = _damped(matvec, ridge)
+    atol = torch.clamp_min(tol * _tree_l2(b, nb), 1e-30)
+    it = torch.zeros_like(atol, dtype=torch.int32)
+    done = _tree_l2(b, nb) <= atol   # b = first series term
+    acc = term = b
+    k = 0
+    while k < maxiter and not bool(torch.all(done)):
+        term1 = _tree_sub(term, matvec(term))            # M v = v - A v
+        acc = _tree_freeze(done, acc, _tree_add(acc, term1), nb)
+        term = _tree_freeze(done, term, term1, nb)
+        it = it + (~done).to(torch.int32)
+        done = done | (_tree_l2(term, nb) <= atol)
+        k += 1
+    if not return_info:
+        return acc
+    rn = _tree_l2(_tree_sub(b, matvec(acc)), nb)
+    # rn <= atol is False for NaN/diverged series — reported honestly
+    return acc, SolveInfo(iterations=it, residual=rn, converged=rn <= atol)
+
+
 # ---------------------------------------------------------------------------
-# approximate backward application — only the mode names are ported
+# approximate backward application (fixed matvec budget, no convergence loop)
 # ---------------------------------------------------------------------------
 
 BACKWARD_MODES = ("exact", "one_step", "neumann_k", "jacobian_free")
 
 
-def _require_exact_backward(backward: str) -> None:
-    """Validate a backward mode; the approximate ones are not ported."""
+def check_backward(backward: str, backward_iters: int = 8) -> None:
+    """Validate a backward mode and its Neumann depth (ValueError)."""
     if backward not in BACKWARD_MODES:
         raise ValueError(f"unknown backward mode {backward!r}; expected "
                          f"one of {BACKWARD_MODES}")
-    if backward != "exact":
-        raise NotImplementedError(
-            f"backward={backward!r}: the approximate backward modes are not "
-            "ported yet (ROADMAP queue A.3/A.4); use backward='exact'")
+    if backward == "neumann_k" and int(backward_iters) < 1:
+        raise ValueError("backward='neumann_k' needs backward_iters >= 1;"
+                         f" got {backward_iters}")
+
+
+def approx_matvec_count(backward: str, backward_iters: int = 8) -> int:
+    """Operator applications an approximate backward mode spends.
+
+    ``jacobian_free`` → 0, ``one_step`` → 1, ``neumann_k`` → k.  The error
+    estimate, when requested, costs one extra matvec on top of this.
+    """
+    if backward == "jacobian_free":
+        return 0
+    if backward == "one_step":
+        return 1
+    if backward == "neumann_k":
+        return int(backward_iters)
+    raise ValueError(f"unknown approximate backward mode {backward!r}; "
+                     f"expected one of {BACKWARD_MODES[1:]}")
+
+
+def approx_inverse_apply(matvec: Callable, b, *, backward: str,
+                         backward_iters: int = 8, ridge: float = 0.0,
+                         precond=None, batch_ndim: int = 0, tol: float = 1e-6,
+                         error_estimate: bool = True,
+                         return_info: bool = False):
+    """Apply an O(k)-matvec polynomial approximation of ``A⁻¹`` to ``b``.
+
+    The cheap-backward counterpart of ``route_solve``: a *fixed* matvec
+    budget instead of a solver iterated to convergence.
+
+    - ``"jacobian_free"``: ``u = b`` (0 matvecs, ``A ≈ I``; ``precond`` is
+      ignored by construction).
+    - ``"one_step"``: one preconditioned Richardson step from
+      ``u₀ = M⁻¹b``, ``u = u₀ + M⁻¹(b − A u₀)`` (1 matvec); without a
+      preconditioner ``u = 2b − A b``.
+    - ``"neumann_k"``: exactly ``k = backward_iters`` preconditioned
+      Richardson steps ``u ← u + M⁻¹(b − A u)`` from ``u₀ = M⁻¹b`` (k
+      matvecs); without a preconditioner the truncated Neumann series
+      ``Σ_{j≤k} (I − A)ʲ b``, which converges iff ``‖I − A‖ < 1`` (true
+      for contractive fixed points ``A = I − ∂T``; stationarity systems
+      ``A = −H`` need ``precond="jacobi"`` on diagonally dominant ``H``).
+
+    ``ridge`` damps ``A`` as in the iterative solvers.  With
+    ``return_info=True`` returns ``(u, SolveInfo)``: ``iterations`` is the
+    matvec budget spent and, when ``error_estimate=True``,
+    ``hypergrad_error_estimate`` is the relative residual
+    ``‖b − A u‖ / ‖b‖`` (one extra matvec).
+    """
+    if backward == "exact" or backward not in BACKWARD_MODES:
+        raise ValueError(f"approx_inverse_apply handles {BACKWARD_MODES[1:]}; "
+                         f"got backward={backward!r} (route 'exact' through "
+                         "route_solve)")
+    nb = batch_ndim
+    b = canonical(b)
+    mv = _damped(matvec, ridge)
+    if backward == "jacobian_free":
+        u = b
+    elif backward == "one_step":
+        M = _resolve_precond(precond, mv, b, nb)
+        if M is None:
+            u = _tree_sub(tree_map(lambda x: 2.0 * x, b), mv(b))
+        else:
+            u0 = M(b)
+            u = _tree_add(u0, M(_tree_sub(b, mv(u0))), batch_ndim=nb)
+    else:  # neumann_k
+        k = int(backward_iters)
+        if k < 1:
+            raise ValueError("backward='neumann_k' needs backward_iters >= 1")
+        M = _resolve_precond(precond, mv, b, nb)
+        step = (lambda r: r) if M is None else M
+        u = b if M is None else M(b)
+        for _ in range(k):
+            u = _tree_add(u, step(_tree_sub(b, mv(u))), batch_ndim=nb)
+
+    if not return_info:
+        return u
+    bn = _tree_l2(b, nb)
+    spent = torch.full(bn.shape, approx_matvec_count(backward, backward_iters),
+                       dtype=torch.int32, device=bn.device)
+    if error_estimate:
+        rn = _tree_l2(_tree_sub(b, mv(u)), nb)
+        info = SolveInfo(iterations=spent, residual=rn,
+                         converged=rn <= torch.clamp_min(tol * bn, 1e-30),
+                         hypergrad_error_estimate=rn / torch.clamp_min(bn,
+                                                                       1e-30))
+    else:
+        info = SolveInfo(iterations=spent,
+                         residual=torch.full_like(bn, math.nan),
+                         converged=torch.zeros(bn.shape, dtype=torch.bool,
+                                               device=bn.device))
+    if obs_events.observing():
+        tags = _solve_event_tags(f"approx_{backward}", matvec, b,
+                                 {"batch_ndim": nb})
+        extra = ({"hypergrad_error_estimate": info.hypergrad_error_estimate}
+                 if info.hypergrad_error_estimate is not None else {})
+        obs_events.emit("solve", tags, iterations=info.iterations,
+                        residual=info.residual, converged=info.converged,
+                        **extra)
+    return u, info
 
 
 # ---------------------------------------------------------------------------
@@ -704,12 +968,18 @@ register_solver("cg", solve_cg, symmetric_only=True, supports_precond=True,
                 description="conjugate gradient (A symmetric PSD)")
 register_solver("normal_cg", solve_normal_cg, supports_precond=True,
                 description="CG on the normal equations (general A)")
+register_solver("bicgstab", solve_bicgstab, supports_precond=True,
+                description="BiCGSTAB (general square A)")
+register_solver("gmres", solve_gmres, supports_precond=True,
+                description="restarted GMRES (general square A)")
 register_solver("dense_gmres", solve_dense_gmres, supports_precond=True,
                 matrix_free=False,
                 description="batched dense GMRES (materializes A; "
                             "nonsymmetric, d<=512)")
 register_solver("lu", solve_lu, matrix_free=False,
                 description="dense direct solve (materializes A)")
+register_solver("neumann", solve_neumann,
+                description="truncated Neumann series for I - M")
 register_solver("pallas_cg", solve_pallas_cg, symmetric_only=True,
                 matrix_free=False,
                 description="batched-CG kernel (Hopper CUDA on the card; "
@@ -733,7 +1003,9 @@ def solve(matvec: Callable, b, *, method="cg", batch_axes: Optional[int] = None,
       batch_axes: ``None`` for a single system, or the int axis along
         which independent systems stack; the batch is solved by ONE masked
         loop.
-      precond: ``None``, a callable v ↦ M⁻¹v, or ``"jacobi"``.
+      precond: ``None``, a callable v ↦ M⁻¹v, ``"jacobi"`` (diagonal), or
+        ``"block_jacobi"`` (``LinearOperator`` only; blocks from the
+        domain's pytree leaves or a ``BlockDiagonal``'s blocks).
       tol / maxiter / ridge / init: the usual solver controls.
       return_info: also return a ``SolveInfo``.
     """

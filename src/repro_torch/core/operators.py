@@ -13,9 +13,17 @@ dense access travel with it:
     a ``torch.func.jvp`` and ``rmatvec`` a ``torch.func.vjp``.
   * ``DenseOperator`` — an explicit ``(d, d)`` or batched ``(B, d, d)``
     matrix acting on pytrees through a ravel.
+  * ``SampledJacobianOperator`` — ``E_b[∂₁f(x₀, b)]`` estimated by
+    averaging one JVP per resample batch (a ``torch.func.vmap`` of
+    ``torch.func.jvp`` over the resample axis).
   * ``RidgeShifted`` — ``A + λI`` damping that preserves structure.
+  * ``BlockDiagonal`` — independent blocks over a tuple of sub-domains;
+    the source of block-Jacobi preconditioners.
+  * ``ComposedOperator`` — ``outer ∘ inner`` products.
+  * ``RaveledOperator`` (``raveled()``) — an operator on its raveled flat
+    vector domain.
   * ``FunctionOperator`` / ``TransposedOperator`` / ``as_operator`` and
-    the Jacobi preconditioners.
+    the Jacobi and block-Jacobi preconditioners.
 
 Defaults are matrix-free: ``rmatvec`` is the VJP of ``matvec`` (the
 transpose of a linear map), or ``matvec`` itself under declared symmetry;
@@ -27,20 +35,19 @@ Pytrees are ``torch.utils._pytree`` trees whose dicts flatten in sorted
 key order, as in JAX (see ``repro_torch.core._tree``), so raveled vectors
 and materialized matrices line up with the JAX package's.
 
-``SampledJacobianOperator``, ``BlockDiagonal``, ``ComposedOperator``,
-``RaveledOperator`` and ``block_jacobi_preconditioner`` are not ported
-yet (ROADMAP queue A.2).  This module imports nothing else of the package.
+This module imports nothing else of the package.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.func
 
 from repro_torch.core._tree import (canonical, ravel_batched, ravel_pytree,
-                                    tree_map)
+                                    tree_flatten, tree_leaves, tree_map,
+                                    tree_unflatten)
 
 
 def _ravel1(tree) -> torch.Tensor:
@@ -197,6 +204,10 @@ class LinearOperator:
         A = _basis_probe(view).permute(1, 2, 0)                 # A[b][:, i]
         return A if self.batch_ndim else A[0]
 
+    def raveled(self) -> "RaveledOperator":
+        """This operator re-expressed on the raveled flat vector domain."""
+        return RaveledOperator(self)
+
     def __repr__(self):
         flags = []
         if self.symmetric:
@@ -295,6 +306,68 @@ class JacobianOperator(LinearOperator):
         return tree_map(torch.neg, out) if self.negate else out
 
 
+class SampledJacobianOperator(LinearOperator):
+    """Monte-Carlo estimate of an expectation Jacobian ``E_b[∂₁f(x₀, b)]``.
+
+    ``fun(x, batch)`` maps the domain pytree to itself for one minibatch
+    (canonically a minibatch gradient mapping, whose Jacobian is a
+    minibatch Hessian); ``batches`` is a pytree whose leaves carry a
+    leading resample axis of length ``k``.  ``matvec`` is a
+    ``torch.func.vmap`` of one ``torch.func.jvp`` per batch, averaged over
+    the resample axis — an unbiased estimate of the full-batch product
+    whose variance shrinks like ``1/k``, and the full-batch product itself
+    when the ``k`` equal-sized batches partition the data.
+
+    ``negate`` flips the sign (the implicit system solves against
+    ``A = -∂₁F``); ``symmetric=True`` certifies every per-batch Jacobian
+    symmetric, so the cotangent solve reuses ``matvec``.
+    """
+
+    def __init__(self, fun: Callable, primal, batches, *,
+                 negate: bool = False, batch_ndim: int = 0,
+                 symmetric: Optional[bool] = None,
+                 positive_definite: bool = False):
+        super().__init__(primal, batch_ndim=batch_ndim, symmetric=symmetric,
+                         positive_definite=positive_definite)
+        leaves = tree_leaves(batches)
+        if not leaves:
+            raise ValueError("batches must be a non-empty pytree whose "
+                             "leaves carry a leading resample axis")
+        self.fun = fun
+        self.primal = self.example
+        self.batches = canonical(batches)
+        self.negate = negate
+        self.num_samples = int(leaves[0].shape[0])
+
+    def _mean(self, stacked):
+        sign = -1.0 if self.negate else 1.0
+        return tree_map(lambda leaf: sign * leaf.mean(dim=0), stacked)
+
+    def matvec(self, v):
+        """Resample-averaged JVP of the per-batch map at the primal."""
+        v = canonical(v)
+
+        def one(batch):
+            _, jv = torch.func.jvp(lambda x: canonical(self.fun(x, batch)),
+                                   (self.primal,), (v,))
+            return jv
+
+        return self._mean(torch.func.vmap(one)(self.batches))
+
+    def rmatvec(self, v):
+        """Resample-averaged VJP (``matvec`` under declared symmetry)."""
+        if self.symmetric:
+            return self.matvec(v)
+        v = canonical(v)
+
+        def one(batch):
+            _, vjp_fun = torch.func.vjp(
+                lambda x: canonical(self.fun(x, batch)), self.primal)
+            return vjp_fun(v)[0]
+
+        return self._mean(torch.func.vmap(one)(self.batches))
+
+
 class DenseOperator(LinearOperator):
     """An explicit matrix ``(d, d)`` (or batched ``(B, d, d)``) acting on
     pytrees through a ravel.  ``diagonal``/``materialize`` are O(1)."""
@@ -390,6 +463,147 @@ class RidgeShifted(LinearOperator):
         return A + self.ridge * eye
 
 
+class BlockDiagonal(LinearOperator):
+    """Independent blocks over a tuple domain: ``A = diag(A₁, …, Aₖ)``.
+
+    The domain is a tuple with one entry per block (each entry any
+    pytree).  Symmetry/definiteness are the conjunction of the blocks';
+    ``diagonal`` is the blocks' diagonals — the natural source of
+    block-Jacobi preconditioners (``block_jacobi_preconditioner``).
+    """
+
+    def __init__(self, ops: Sequence[LinearOperator]):
+        ops = tuple(ops)
+        if not ops:
+            raise ValueError("BlockDiagonal needs at least one block")
+        batch = {op.batch_ndim for op in ops}
+        if len(batch) != 1:
+            raise ValueError("blocks disagree on batch_ndim")
+        syms = [op.symmetric for op in ops]
+        symmetric = (True if all(s is True for s in syms)
+                     else False if any(s is False for s in syms) else None)
+        super().__init__(tuple(op.example for op in ops),
+                         batch_ndim=batch.pop(), symmetric=symmetric,
+                         positive_definite=all(op.positive_definite
+                                               for op in ops))
+        self.ops = ops
+
+    def matvec(self, v):
+        """Apply each block to its entry of the domain tuple."""
+        return tuple(op.matvec(vi) for op, vi in zip(self.ops, v))
+
+    def rmatvec(self, v):
+        """Apply each block's adjoint to its entry."""
+        return tuple(op.rmatvec(vi) for op, vi in zip(self.ops, v))
+
+    def transpose(self) -> LinearOperator:
+        """Blockwise transpose."""
+        if self.symmetric:
+            return self
+        return BlockDiagonal(tuple(op.transpose() for op in self.ops))
+
+    def diagonal(self):
+        """Blockwise diagonals as a pytree."""
+        return tuple(op.diagonal() for op in self.ops)
+
+    def materialize(self) -> torch.Tensor:
+        """Dense block-diagonal matrix in ravel order."""
+        blocks = [op.materialize() for op in self.ops]
+        d = sum(blk.shape[-1] for blk in blocks)
+        shape = blocks[0].shape[:-2] + (d, d)
+        A = blocks[0].new_zeros(shape)
+        i = 0
+        for blk in blocks:
+            n = blk.shape[-1]
+            A[..., i:i + n, i:i + n] = blk
+            i += n
+        return A
+
+
+class ComposedOperator(LinearOperator):
+    """``outer ∘ inner`` — the product operator, e.g. a left-preconditioned
+    system ``M⁻¹ A``.  Flags default to unknown (products rarely preserve
+    them) unless asserted explicitly."""
+
+    def __init__(self, outer: LinearOperator, inner: LinearOperator, *,
+                 symmetric: Optional[bool] = None,
+                 positive_definite: bool = False):
+        super().__init__(inner.example, batch_ndim=inner.batch_ndim,
+                         symmetric=symmetric,
+                         positive_definite=positive_definite)
+        self.outer = outer
+        self.inner = inner
+
+    def matvec(self, v):
+        """Apply the composition right to left."""
+        return self.outer.matvec(self.inner.matvec(v))
+
+    def rmatvec(self, v):
+        """Apply the adjoint composition left to right."""
+        return self.inner.rmatvec(self.outer.rmatvec(v))
+
+    def transpose(self) -> LinearOperator:
+        """Compose the transposes in reverse order."""
+        if self.symmetric:
+            return self
+        # (M A)ᵀ = Aᵀ Mᵀ; the declared flags are properties of the product
+        return ComposedOperator(self.inner.transpose(),
+                                self.outer.transpose(),
+                                symmetric=self.symmetric,
+                                positive_definite=self.positive_definite)
+
+
+class RaveledOperator(LinearOperator):
+    """An operator re-expressed on its raveled flat-vector domain.
+
+    ``ravel``/``unravel`` move right-hand sides and solutions across, and
+    ``ravel_fn`` lifts tree-to-tree callables (user preconditioners) to
+    the flat domain.  Instance-shaped operators only.
+    """
+
+    def __init__(self, op: LinearOperator):
+        if op.batch_ndim != 0:
+            raise ValueError("RaveledOperator wraps instance-shaped "
+                             "operators; torch.func.vmap supplies batching")
+        flat_example, unravel = ravel_pytree(op.example)
+        super().__init__(flat_example, batch_ndim=0, symmetric=op.symmetric,
+                         positive_definite=op.positive_definite)
+        self.op = op
+        self._unravel = unravel
+
+    def ravel(self, tree) -> torch.Tensor:
+        """Ravel a domain pytree to the flat vector domain."""
+        return _ravel1(tree)
+
+    def unravel(self, flat):
+        """Unravel a flat vector back to the domain pytree."""
+        return self._unravel(flat)
+
+    def ravel_fn(self, fn: Callable) -> Callable:
+        """Lift a tree→tree linear map (e.g. a preconditioner) to flat."""
+        return lambda vf: _ravel1(fn(self._unravel(vf)))
+
+    def matvec(self, vf):
+        """Flat-domain matvec (unravel → base matvec → ravel)."""
+        return _ravel1(self.op.matvec(self._unravel(vf)))
+
+    def rmatvec(self, vf):
+        """Flat-domain adjoint matvec."""
+        return _ravel1(self.op.rmatvec(self._unravel(vf)))
+
+    def diagonal(self):
+        """Base diagonal, raveled flat."""
+        return _ravel1(self.op.diagonal())
+
+    def materialize(self) -> torch.Tensor:
+        """The base operator's dense matrix (already ravel-ordered)."""
+        return self.op.materialize()
+
+    def raveled(self) -> "RaveledOperator":
+        """Already flat: ``self``."""
+        return self
+
+
 # ---------------------------------------------------------------------------
 # adapters and derived preconditioners
 # ---------------------------------------------------------------------------
@@ -429,3 +643,56 @@ def jacobi_preconditioner(diag) -> Callable:
 def jacobi_preconditioner_from(op: LinearOperator) -> Callable:
     """``M⁻¹ v = v / diag(A)`` derived from ``op.diagonal()``."""
     return jacobi_preconditioner(op.diagonal())
+
+
+def block_jacobi_preconditioner(op: LinearOperator,
+                                materialized=None) -> Callable:
+    """Per-block dense inverse preconditioner from the operator's structure.
+
+    For a ``BlockDiagonal`` operator this is exact (each block
+    materialized and inverted); for any other operator the *leaves* of the
+    domain pytree define the blocks — the matching diagonal sub-blocks of
+    ``A`` are taken from one materialization and inverted, off-diagonal
+    coupling dropped.  ``materialized`` skips that materialization when
+    the caller already holds the dense matrix.  Returns a tree→tree
+    callable usable as ``precond`` (dense small-system regime).
+    """
+    def instance_size(example, batched):
+        if batched:
+            example = tree_map(lambda l: l[0], example)
+        return _ravel1(example).shape[0]
+
+    if isinstance(op, BlockDiagonal):
+        if materialized is None:
+            mats = [blk.materialize() for blk in op.ops]
+        else:   # slice the supplied dense matrix along the declared blocks
+            mats, i = [], 0
+            for blk in op.ops:
+                n = instance_size(blk.example, blk.batch_ndim)
+                mats.append(materialized[..., i:i + n, i:i + n])
+                i += n
+        inv_ops = [DenseOperator(torch.linalg.inv(m), blk.example,
+                                 symmetric=blk.symmetric)
+                   for m, blk in zip(mats, op.ops)]
+        return lambda v: tuple(inv.matvec(vi) for inv, vi in zip(inv_ops, v))
+
+    example = op.example
+    if op.batch_ndim:
+        example = tree_map(lambda l: l[0], example)
+    leaves, spec = tree_flatten(example)
+    A = op.materialize() if materialized is None else materialized
+    invs, i = [], 0
+    for leaf in leaves:
+        n = int(leaf.numel())
+        invs.append(torch.linalg.inv(A[..., i:i + n, i:i + n]))
+        i += n
+
+    def M(v):
+        vleaves = tree_leaves(v)
+        batch_shape = tuple(vleaves[0].shape[:1]) if op.batch_ndim else ()
+        return tree_unflatten(
+            [torch.einsum("...ij,...j->...i", inv,
+                          vl.reshape(batch_shape + (-1,))).reshape(vl.shape)
+             for inv, vl in zip(invs, vleaves)], spec)
+
+    return M

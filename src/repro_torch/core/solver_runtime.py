@@ -9,21 +9,27 @@ Counterpart of ``repro.core.solver_runtime`` (PyTorch): *any* solver plus
     ``fixed_point_fun`` for fixed-point form, both drawn from
     ``repro_torch.core.optimality``).
   * a shared ``run()`` driver.  The JAX package's ``lax.while_loop`` is a
-    Python loop on one instance: it stops when ``iter_num ≥ maxiter`` or
-    when ``error > tol`` is no longer True — a NaN error stops it and is
+    Python loop: it stops when ``iter_num ≥ maxiter`` or when
+    ``error > tol`` is no longer True — a NaN error stops it and is
     reported unconverged, as in the reference.  Reading ``error`` costs one
-    host synchronisation per iteration.
+    host synchronisation per iteration.  Under ``torch.func.vmap`` the
+    batch runs as ONE masked loop (``_RunLoop``'s ``vmap`` rule): each
+    step is a ``torch.func.vmap`` of ``update``, each instance freezes at
+    its own convergence, and the loop reads "any instance still running"
+    once per iteration; ``OptInfo`` is then per instance.
   * ``OptInfo`` diagnostics mirroring ``SolveInfo``: iteration count, final
     error, and the NaN-aware ``converged = error <= tol``.
   * automatic implicit differentiation: ``run()`` self-wraps with the
     port's ``diff_api.implicit_diff`` on the solver's optimality mapping
     (``has_aux=True``: ``OptInfo`` gets no derivative), so
-    ``torch.autograd.grad`` / ``torch.func.grad`` and ``torch.func.jvp``
-    work through ``run()``.  The forward loop runs under ``no_grad`` inside
+    ``torch.autograd.grad`` / ``torch.func.grad`` / ``jacrev`` and
+    ``torch.func.jvp`` / ``jacfwd`` work through ``run()``, and under
+    ``torch.func.vmap`` the backward solve of the batch is one solve.  The forward loop runs under ``no_grad`` inside
     that wrapper; the ``torch.func.grad`` calls in ``update`` ignore an
     outer ``no_grad``, as wanted.  The backward/tangent solve goes through
     the linear-solve registry (``solve``, ``precond``, ``ridge``,
-    ``linsolve_tol``, ``linsolve_maxiter``).
+    ``linsolve_tol``, ``linsolve_maxiter``), and ``backward`` /
+    ``backward_iters`` select the approximate backward modes.
 
 Solvers: ``GradientDescent``, ``ProximalGradient`` (FISTA momentum on by
 default), ``ProjectedGradient``, ``MirrorDescent``,
@@ -32,13 +38,8 @@ default), ``ProjectedGradient``, ``MirrorDescent``,
 ``torch.func.grad``, so objectives return scalar tensors.  The deprecated
 functional factories live in ``repro_torch.core.solvers``.
 
-Not ported yet (each raises ``NotImplementedError``):
-  * a batch axis — the JAX runtime batches by ``jax.vmap`` over ``run``;
-    ``torch.func.vmap`` of ``run`` needs the implicit-diff vmap rule of
-    ROADMAP queue A.4;
-  * ``sharding=`` (ROADMAP A.11);
-  * ``backward != "exact"`` and ``estimate_hypergrad_error`` (ROADMAP A.4);
-    with them the JAX fields ``backward_iters`` and ``error_estimate``.
+Not ported yet: ``sharding=`` (ROADMAP queue A.11) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ import torch.func
 
 from repro_torch.core import diff_api, optimality
 from repro_torch.core import linear_solve as ls
-from repro_torch.core._tree import (ravel_pytree, tree_flatten, tree_leaves,
+from repro_torch.core._tree import (Flat, batch_first, is_batched,
+                                    ravel_pytree, tree_flatten, tree_leaves,
                                     tree_map)
 # tree math shared with the linear-solve engine
 from repro_torch.core.linear_solve import _tree_l2, _tree_sub
@@ -75,16 +77,10 @@ def _inf_like(params) -> torch.Tensor:
     return torch.full((), math.inf, dtype=l2.dtype, device=l2.device)
 
 
-def _reject_batched(*trees) -> None:
-    """``torch.func.vmap`` over ``run`` is not ported (ROADMAP A.4)."""
-    is_batched = torch._C._functorch.is_batchedtensor
-    for tree in trees:
-        for leaf in tree_leaves(tree):
-            if isinstance(leaf, torch.Tensor) and is_batched(leaf):
-                raise NotImplementedError(
-                    "a batch axis over run() (torch.func.vmap) is not ported "
-                    "yet: it needs the implicit-diff vmap rule of ROADMAP "
-                    "queue A.4; loop over the instances instead")
+def _where0(cond, old, new):
+    """Per-instance ``where(cond, new, old)`` over trees batched on axis 0."""
+    return tree_map(lambda o, n: torch.where(
+        cond.reshape(cond.shape + (1,) * (n.ndim - 1)), n, o), old, new)
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +128,9 @@ class OptInfo(NamedTuple):
     iterations: torch.Tensor   # update() steps spent
     error: torch.Tensor        # solver-specific final error
     converged: torch.Tensor    # error <= tol (NaN-aware False)
-    # the JAX package's approximate-backward residual; always None here
-    # until the approximate modes are ported (ROADMAP A.4)
+    # relative residual of the implicit backward system at the returned
+    # cotangent — filled by drivers that ask for it (solve_bilevel with an
+    # approximate backward mode); None otherwise
     hypergrad_error_estimate: Any = None
 
 
@@ -166,15 +163,18 @@ class IterativeSolver:
     solve goes through the registry: ``solve`` names the registry solver
     (``"auto"`` dispatches on the implicit system's structure, or pass a
     callable) and ``precond`` / ``ridge`` / ``linsolve_tol`` /
-    ``linsolve_maxiter`` are forwarded.
+    ``linsolve_maxiter`` are forwarded.  ``backward`` (``"exact"`` |
+    ``"one_step"`` | ``"neumann_k"`` | ``"jacobian_free"``) treats the
+    implicit system in both directions, ``backward_iters`` is the
+    ``neumann_k`` depth and ``error_estimate`` opts info-returning entry
+    points into the one-extra-matvec relative residual.
 
     ``mode`` selects the differentiation wrapping (overridable per call via
     ``run(..., mode=...)``): ``"auto"`` (reverse and forward mode on the
     same ``run()``), ``"jvp"`` (forward only), ``"vjp"`` (reverse only).
 
-    ``backward`` must be ``"exact"`` and ``sharding`` ``None``: the
-    approximate backward modes (ROADMAP A.4) and mesh placement (A.11) are
-    not ported yet and raise ``NotImplementedError``.
+    ``sharding`` must be ``None``: mesh placement (ROADMAP A.11) is not
+    ported yet and raises ``NotImplementedError``.
     """
     maxiter: int = _kw(1000)
     tol: float = _kw(1e-8)
@@ -186,10 +186,12 @@ class IterativeSolver:
     ridge: float = _kw(0.0)
     precond: Any = _kw(None)
     backward: str = _kw("exact")
+    backward_iters: int = _kw(8)
+    error_estimate: bool = _kw(True)
     sharding: Any = _kw(None)
 
     def __post_init__(self):
-        ls._require_exact_backward(self.backward)
+        ls.check_backward(self.backward, self.backward_iters)
         if self.sharding is not None:
             raise NotImplementedError(
                 "sharding= (mesh placement of the iterate and the backward "
@@ -225,7 +227,13 @@ class IterativeSolver:
         return state.iter_num < self.maxiter and bool(state.error > self.tol)
 
     def _iterate(self, init_params, *theta):
-        """The raw loop: no implicit diff attached."""
+        """The raw loop: no implicit diff attached.  A batch axis
+        (``torch.func.vmap``) runs through ``_RunLoop``'s masked loop."""
+        if is_batched(init_params, theta):
+            flat = Flat(init_params, theta)
+            out = _RunLoop.apply((self, flat), *flat.tensors)
+            params = Flat(init_params).trees(out[:-3])[0]
+            return params, OptInfo(*out[-3:])
         params = init_params
         state = self.init_state(params, *theta)
         while self._continuing(state):
@@ -239,16 +247,65 @@ class IterativeSolver:
                         converged=info.converged)
         return params, info
 
+    def _masked_loop(self, params, theta, theta_dims, B: int):
+        """ONE loop for a batch of instances (``_RunLoop``'s vmap rule).
+
+        ``params``' leaves carry the batch on axis 0; ``theta``'s tensor
+        leaves on axis 0 or not at all (``theta_dims``).  Each step is a
+        ``torch.func.vmap`` of ``update``; instances that were done at
+        the step's entry keep their params and state, so each ends where
+        its solo run ends.  The state's non-tensor fields (``iter_num``,
+        FISTA's ``t``) are the same for every instance still running.
+        """
+        last = {}       # the last state's Flat: its non-tensor fields
+
+        def tensors_of(state):
+            last["flat"] = Flat(state)
+            return last["flat"].tensors
+
+        def state_of(tensors):
+            return last["flat"].trees(tensors)[0]
+
+        def step(p, st, th):
+            new_p, new_state = self.update(p, state_of(st), *th)
+            return new_p, tensors_of(new_state)
+
+        st = torch.func.vmap(
+            lambda p, th: tensors_of(self.init_state(p, *th)),
+            in_dims=(0, theta_dims))(params, theta)
+        iters = torch.zeros(B, dtype=torch.int64,
+                            device=tree_leaves(params)[0].device)
+
+        def continuing():
+            return (iters < self.maxiter) & (state_of(st).error > self.tol)
+
+        running = continuing()
+        while bool(running.any()):
+            new_p, new_st = torch.func.vmap(
+                step, in_dims=(0, 0, theta_dims))(params, st, theta)
+            params = _where0(running, params, new_p)
+            st = _where0(running, st, new_st)
+            iters = iters + running.to(torch.int64)
+            running = continuing()
+        error = state_of(st).error
+        info = OptInfo(iterations=iters, error=error,
+                       converged=error <= self.tol)
+        obs_events.emit("converged", {"solver": type(self).__name__},
+                        iterations=info.iterations, error=info.error,
+                        converged=info.converged)
+        return params, info
+
     def diff_spec(self) -> diff_api.ImplicitDiffSpec:
         """The solver's ``ImplicitDiffSpec``: its declared optimality
         mapping plus its configured backward-solve routing.  ``run()``
-        self-wraps with this; drivers (``bilevel``) may override routing
-        fields per call via ``spec.replace(...)``."""
+        self-wraps with this; drivers (``bilevel``, the DEQ layer) may
+        override routing fields per call via ``spec.replace(...)``."""
         return diff_api.ImplicitDiffSpec(
             optimality_fun=self.optimality_fun, solve=self.solve,
             tol=self.linsolve_tol, maxiter=self.linsolve_maxiter,
             ridge=self.ridge, precond=self.precond, has_aux=True,
-            backward=self.backward)
+            backward=self.backward, backward_iters=self.backward_iters,
+            error_estimate=self.error_estimate)
 
     def run(self, init_params, *theta, mode: Optional[str] = None):
         """Solve from ``init_params``; returns ``(params, OptInfo)``.
@@ -258,10 +315,12 @@ class IterativeSolver:
         optimality mapping; ``init_params`` and ``OptInfo`` get no
         derivative.  With the default ``mode="auto"`` the same ``run``
         supports reverse (``torch.autograd.grad``, ``torch.func.grad`` /
-        ``jacrev``) and forward (``torch.func.jvp``) differentiation;
-        ``mode`` (keyword) overrides the instance setting per call.
+        ``jacrev``) and forward (``torch.func.jvp`` / ``jacfwd``)
+        differentiation; ``mode`` (keyword) overrides the instance setting
+        per call.  ``torch.func.vmap`` over ``run`` (or either mode's
+        derivative) runs the forward as one masked loop and the backward
+        or tangent solve as one batched solve.
         """
-        _reject_batched(init_params, theta)
         if not self.implicit_diff:
             return self._iterate(init_params, *theta)
         deco = diff_api.implicit_diff(
@@ -273,11 +332,87 @@ class IterativeSolver:
         return _tree_l2(self.optimality_fun(params, *theta))
 
     def estimate_hypergrad_error(self, params, *theta, cotangent=None):
-        """Not ported yet: the honesty check of the approximate backward
-        modes comes with them (ROADMAP queue A.4)."""
-        raise NotImplementedError(
-            "estimate_hypergrad_error belongs to the approximate backward "
-            "modes, which are not ported yet (ROADMAP queue A.4)")
+        """Relative residual ``‖v − Aᵀu‖/‖v‖`` of the cotangent system at
+        the (possibly approximate) backward solution ``u``.
+
+        The honesty check of the approximate ``backward`` modes: replays
+        the configured backward treatment on the cotangent ``v`` (an
+        all-ones tree shaped like ``params`` by default) and spends one
+        extra matvec on the implicit system's residual.
+        """
+        if cotangent is None:
+            cotangent = tree_map(torch.ones_like, params)
+        spec = self.diff_spec()
+        _, info = diff_api.root_vjp(
+            spec.residual_fun, params, theta, cotangent, solve=spec.solve,
+            error_estimate=True, return_info=True,
+            system_operator=spec.system_operator,
+            **spec.routing_kwargs(), **spec.backward_kwargs())
+        return info.hypergrad_error_estimate
+
+
+class _RunLoop(torch.autograd.Function):
+    """``run()``'s loop on a batch axis.  Inputs: the tensors of
+    ``(init_params, theta)``; outputs: the params' tensors, then
+    ``OptInfo``'s three fields.  Its ``vmap`` rule runs the batch as one
+    masked loop (``IterativeSolver._masked_loop``)."""
+
+    @staticmethod
+    def forward(job, *tensors):
+        solver, flat = job
+        params, theta = flat.trees(tensors)
+        params, info = solver._iterate(params, *theta)
+        return tuple(Flat(params).tensors) + tuple(info[:3])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output)
+
+    @staticmethod
+    def vmap(info, in_dims, job, *tensors):
+        solver, flat = job
+        tensors, dims = batch_first(tensors, in_dims[1:])
+        params, theta = flat.trees(tensors)
+        params_dims, theta_dims = flat.dims(dims)
+        params = tree_map(lambda l, d: l if d == 0 else
+                          l.expand((info.batch_size,) + tuple(l.shape)),
+                          params, params_dims)
+        params, opt = solver._masked_loop(params, theta, theta_dims,
+                                          info.batch_size)
+        out = tuple(Flat(params).tensors) + tuple(opt[:3])
+        return out, (0,) * len(out)
+
+
+class _Backtrack(torch.autograd.Function):
+    """The Armijo halving of ``GradientDescent``'s line search on a batch
+    axis: its ``vmap`` rule halves each instance's step until its own test
+    passes, reading "any instance still halving" once per halving.
+    Inputs: the tensors of ``(params, g, v, gnorm2, theta)``; output: η."""
+
+    @staticmethod
+    def forward(job, *tensors):
+        solver, flat = job
+        return torch.as_tensor(solver._backtrack(*flat.trees(tensors)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def vmap(info, in_dims, job, *tensors):
+        solver, flat = job
+        tensors, dims = batch_first(tensors, in_dims[1:])
+        args = flat.trees(tensors)
+        v = args[2]
+        eta = torch.full((info.batch_size,), solver.stepsize,
+                         dtype=v.dtype, device=v.device)
+        shrink = torch.func.vmap(solver._needs_shrink,
+                                 in_dims=(0, *flat.dims(dims)))
+        halving = shrink(eta, *args)
+        while bool(halving.any()):
+            eta = torch.where(halving, 0.5 * eta, eta)
+            halving = halving & shrink(eta, *args)
+        return eta, 0
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +431,8 @@ class GradientDescent(IterativeSolver):
 
     ``error`` is ``‖Δx‖`` for the fixed-step variant and ``‖∇f‖`` with
     backtracking (halve η until the Armijo test passes, one objective
-    evaluation and one host read per halving).
+    evaluation and one host read per halving; on a batch axis the halving
+    is masked per instance, ``_Backtrack``).
     """
     fun: Callable = None
     stepsize: float = 1e-2
@@ -320,18 +456,27 @@ class GradientDescent(IterativeSolver):
 
         g, v = torch.func.grad_and_value(self.fun, argnums=0)(params, *theta)
         gnorm2 = sum(ls._real(ls._tree_dot(gi, gi)) for gi in tree_leaves(g))
-
-        def needs_shrink(eta):
-            x_try = _tree_axpy(params, g, -eta)
-            return eta > 1e-12 and bool(
-                self.fun(x_try, *theta) > v - 0.5 * eta * gnorm2)
-
-        eta = self.stepsize
-        while needs_shrink(eta):
-            eta = 0.5 * eta
+        if is_batched(params, g, v, theta):
+            flat = Flat(params, g, v, gnorm2, theta)
+            eta = _Backtrack.apply((self, flat), *flat.tensors)
+        else:
+            eta = self._backtrack(params, g, v, gnorm2, theta)
         new_params = _tree_axpy(params, g, -eta)
         return new_params, GradientDescentState(state.iter_num + 1,
                                                 torch.sqrt(gnorm2))
+
+    def _needs_shrink(self, eta, params, g, v, gnorm2, theta):
+        """The Armijo test fails at step ``eta`` (and ``eta > 1e-12``)."""
+        x_try = _tree_axpy(params, g, -eta)
+        return (eta > 1e-12) & (self.fun(x_try, *theta)
+                                > v - 0.5 * eta * gnorm2)
+
+    def _backtrack(self, params, g, v, gnorm2, theta) -> float:
+        """Halve η from ``stepsize`` until the Armijo test passes."""
+        eta = self.stepsize
+        while bool(self._needs_shrink(eta, params, g, v, gnorm2, theta)):
+            eta = 0.5 * eta
+        return eta
 
 
 # ---------------------------------------------------------------------------

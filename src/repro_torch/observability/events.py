@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch._C import _functorch
 
 from repro_torch.observability import metrics as _metrics
 from repro_torch.observability import spans as _spans
@@ -157,11 +158,21 @@ def subscribe(fn: Callable[[SolveEvent], None]) -> Callable[[], None]:
 # -- dispatch ----------------------------------------------------------------
 
 def _host(v):
-    """Copy a runtime value to host numpy (labels/strings pass through)."""
+    """Copy a runtime value to host numpy (labels/strings pass through).
+
+    A tensor inside a ``torch.func`` transform is first unwrapped: under
+    ``vmap`` the copy is the physical tensor, with the batch axis."""
     if isinstance(v, (str, bytes, bool, int, float, type(None))):
         return v
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        if not _functorch.is_functorch_wrapped_tensor(v):
+            return v.detach().cpu().numpy()
+        from torch._functorch.pyfunctorch import \
+            temporarily_clear_interpreter_stack
+        while _functorch.is_functorch_wrapped_tensor(v):
+            v = _functorch.get_unwrapped(v)
+        with temporarily_clear_interpreter_stack():
+            return v.detach().cpu().numpy()
     return np.asarray(v)
 
 

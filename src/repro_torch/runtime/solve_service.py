@@ -8,8 +8,9 @@ batched masked solve through ``route_solve`` on a stacked
 (no cache, no preconditioner) run the hand-written batched-CG kernel.
 
   * **Bucketing** — requests are keyed by
-    ``(d, solver, precond, symmetric/PD flags, dtype, tol, maxiter, ridge)``
-    (``BucketKey``); one bucket is one batched block-diagonal system.
+    ``(d, solver, precond, symmetric/PD flags, dtype, tol, maxiter, ridge,
+    backward mode)`` (``BucketKey``); one bucket is one batched
+    block-diagonal system.
   * **Fixed shapes** — buckets are padded to power-of-two capacities
     (``bucket_capacity``) with identity systems and zero right-hand sides,
     which converge at loop entry.  The JAX service compiles one program
@@ -31,8 +32,10 @@ is the identity under ``jax_enable_x64``.
 
 The service runs on ``device`` (default ``"cuda"``; on a host without a
 CUDA device ``SolveService()`` raises — pass ``device="cpu"`` for the
-CPU).  Hypergradient requests take the exact backward only; the
-approximate arm is not ported yet (ROADMAP queue A.8).
+CPU).  Hypergradient requests may ask for an approximate backward mode
+(``one_step`` / ``neumann_k`` / ``jacobian_free``): those get buckets of
+their own, dispatch through ``approx_inverse_apply`` with its error
+estimate, and never touch the warm-start cache.
 
 Quickstart::
 
@@ -79,20 +82,26 @@ class BucketKey(NamedTuple):
     """
     d: int                       # instance dimension (raveled)
     solver: str                  # resolved registry solver name
-    precond: Optional[str]       # None | "jacobi"
+    precond: Optional[str]       # None | "jacobi" | "block_jacobi"
     symmetric: Optional[bool]    # operator's declared symmetry flag
     positive_definite: bool      # operator's declared PD flag
     dtype: str                   # numpy name of the result dtype of (A, b)
     tol: float
     maxiter: int
     ridge: float
-    backward: str = "exact"      # only "exact" is served so far
+    # approximate-backward arm: exact and approximate hypergradient traffic
+    # never share a bucket ("exact" | "one_step" | "neumann_k" |
+    # "jacobian_free"; backward_iters is the neumann_k depth, 0 otherwise)
+    backward: str = "exact"
     backward_iters: int = 0
 
 
 def _bucket_label(key: BucketKey) -> str:
     """Compact, stable bucket tag for spans/events."""
-    return f"{key.solver}:d={key.d}:{key.dtype}"
+    label = f"{key.solver}:d={key.d}:{key.dtype}"
+    if key.backward != "exact":
+        label += f":{key.backward}"
+    return label
 
 
 def bucket_capacity(n: int, max_batch: int = 64) -> int:
@@ -393,8 +402,8 @@ class SolveService:
         if r["precond"] is not None and not isinstance(r["precond"], str):
             raise ValueError(
                 "the solve service buckets by preconditioner kind; pass "
-                "precond=None/'jacobi' (a callable M⁻¹ is request-specific "
-                "and cannot key a shared bucket)")
+                "precond=None/'jacobi'/'block_jacobi' (a callable M⁻¹ is "
+                "request-specific and cannot key a shared bucket)")
         r["tol"] = float(r["tol"])
         r["maxiter"] = int(r["maxiter"])
         r["ridge"] = float(r["ridge"])
@@ -472,7 +481,8 @@ class SolveService:
 
     def _build_request(self, A, b, symmetric, positive_definite, spec,
                        solve, tol, maxiter, ridge, precond,
-                       warm_start: bool) -> _PendingRequest:
+                       warm_start: bool, backward: str = "exact",
+                       backward_iters: int = 0) -> _PendingRequest:
         """Admission: normalize, bucket-key, warm-start lookup (no enqueue)."""
         admit_t = time.perf_counter()
         r = self._routing(spec, solve, tol, maxiter, ridge, precond)
@@ -496,9 +506,13 @@ class SolveService:
         key = BucketKey(d=d, solver=solver, precond=r["precond"],
                         symmetric=sym, positive_definite=pd,
                         dtype=str(dtype), tol=r["tol"],
-                        maxiter=r["maxiter"], ridge=r["ridge"])
+                        maxiter=r["maxiter"], ridge=r["ridge"],
+                        backward=backward, backward_iters=backward_iters)
         fingerprint = init = None
-        if self.cache is not None and warm_start:
+        if self.cache is not None and warm_start and backward == "exact":
+            # approximate buckets skip the warm-start path: the polynomial
+            # apply has no init to seed, and caching its truncated output
+            # would poison the exact buckets' starts
             fingerprint = self.cache.fingerprint(A_dense, b_flat, key)
             init = self.cache.get(fingerprint)
             if init is not None and solver == "pallas_cg":
@@ -530,6 +544,7 @@ class SolveService:
     def submit_hypergrad(self, optimality_fun, x_star, theta, cotangent, *,
                          spec=None, solve=_UNSET, tol=_UNSET, maxiter=_UNSET,
                          ridge=_UNSET, precond=_UNSET, backward=_UNSET,
+                         backward_iters=_UNSET,
                          warm_start: bool = True) -> Future:
         """Enqueue one implicit hypergradient: resolves to ``vᵀ ∂x*(θ)``.
 
@@ -539,7 +554,15 @@ class SolveService:
         tuple of θ arguments (a single value is accepted); ``x_star``,
         ``theta`` and ``cotangent`` are tensors (numpy leaves are moved to
         the service's device).  ``ServiceResult.x`` is ``root_vjp``'s
-        return value.  ``backward`` must be ``"exact"``.
+        return value.
+
+        ``backward`` selects an approximate cotangent treatment
+        (``"one_step"`` / ``"neumann_k"`` / ``"jacobian_free"``,
+        ``backward_iters`` the Neumann depth), resolved like the routing
+        (service default "exact" < ``spec`` < keyword).  Approximate
+        requests land in their own bucket arm, never read or fill the
+        warm-start cache, and their ``ServiceResult.info`` carries the
+        ``hypergrad_error_estimate`` relative residual.
         """
         if optimality_fun is None:
             if spec is None or spec.is_routing_only:
@@ -549,11 +572,21 @@ class SolveService:
             optimality_fun = spec.residual_fun
         if not isinstance(theta, tuple):
             theta = (theta,)
+        r = self._routing(spec, solve, tol, maxiter, ridge, precond)
         bw = spec.backward if spec is not None else "exact"
+        bwk = spec.backward_iters if spec is not None else 8
         if backward is not _UNSET:
             bw = backward
-        ls._require_exact_backward(bw)
-        r = self._routing(spec, solve, tol, maxiter, ridge, precond)
+        if backward_iters is not _UNSET:
+            bwk = backward_iters
+        ls.check_backward(bw, bwk)
+        if bw != "exact" and r["precond"] == "block_jacobi":
+            raise ValueError(
+                "precond='block_jacobi' inverts the full flat block — that "
+                "would make the 'approximate' backward an exact solve; use "
+                "precond=None or 'jacobi' with approximate backward modes")
+        # one_step / jacobian_free take no depth: their key arm is 0
+        bwk = int(bwk) if bw == "neumann_k" else 0
         x_star = canonical(self._on_device(x_star))
         theta = tuple(self._on_device(t) for t in theta)
         solver = r["solve"]
@@ -573,7 +606,7 @@ class SolveService:
 
         pending = self._build_request(
             AT, cotangent, A.symmetric, False, spec, solve, tol, maxiter,
-            ridge, precond, warm_start)
+            ridge, precond, warm_start, backward=bw, backward_iters=bwk)
         pending.finish = finish
         return self._enqueue(pending)
 
@@ -585,7 +618,10 @@ class SolveService:
         Builds the stacked ``DenseOperator`` (structure flags from the
         bucket key) and routes ONE batched masked solve through
         ``route_solve`` with ``return_info=True``.  ``pallas_cg`` buckets
-        never carry warm starts.
+        never carry warm starts.  An approximate bucket applies its fixed
+        polynomial (``approx_inverse_apply``) with the error estimate
+        always on: it is the approximate modes' honesty contract, at one
+        extra matvec.
         """
         with self._lock:
             fn = self._compiled.get((key, cap))
@@ -596,6 +632,12 @@ class SolveService:
         def dispatch(A_stack, b_stack, init_stack):
             op = ops.DenseOperator(A_stack, symmetric=key.symmetric,
                                    positive_definite=key.positive_definite)
+            if key.backward != "exact":
+                return ls.approx_inverse_apply(
+                    op, b_stack, backward=key.backward,
+                    backward_iters=max(key.backward_iters, 1),
+                    ridge=key.ridge, precond=key.precond, batch_ndim=1,
+                    tol=key.tol, error_estimate=True, return_info=True)
             return ls.route_solve(
                 key.solver, op, b_stack, tol=key.tol, maxiter=key.maxiter,
                 ridge=key.ridge, precond=key.precond,
@@ -652,6 +694,8 @@ class SolveService:
         it = _host(info.iterations).tolist()
         rn = _host(info.residual).tolist()
         cv = _host(info.converged).tolist()
+        est = info.hypergrad_error_estimate
+        est = [None] * cap if est is None else _host(est).tolist()
         tracer = obs_spans.current_tracer()
         for i, req in enumerate(reqs):
             xi = x_host[i]
@@ -667,7 +711,8 @@ class SolveService:
                 req.future.set_result(ServiceResult(
                     uid=req.uid, x=payload,
                     info=SolveInfo(iterations=it[i], residual=rn[i],
-                                   converged=cv[i]),
+                                   converged=cv[i],
+                                   hypergrad_error_estimate=est[i]),
                     queue_time=queue_t, solve_time=solve_t,
                     bucket_size=n, bucket_capacity=cap,
                     warm_start=req.init is not None))

@@ -4,7 +4,10 @@
 ``pallas_cg`` on the same float64 systems: x to 1e-10, per-instance
 ``iterations`` equal (-1 for ``pallas_cg``) and ``converged`` equal;
 ``_resolve_auto`` choices equal; the symmetric-only refusal; ``solve``
-with ``batch_axes``.
+with ``batch_axes``.  ``bicgstab``, ``gmres`` and ``neumann`` on batches
+whose instances converge at different iterations (masked), with and
+without ``jacobi`` / ``block_jacobi``: the same checks, plus the
+residual; ``materialize_matrix`` on a closure and on an operator.
 """
 import itertools
 
@@ -145,10 +148,13 @@ def test_registry_errors():
         tls.route_solve("pallas_cg", tops.DenseOperator(
             torch.eye(3), positive_definite=True), torch.ones(3),
             init=torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tls.route_solve("cg", tops.DenseOperator(
-            torch.eye(3), positive_definite=True), torch.ones(3),
-            precond="block_jacobi")
+    # block_jacobi derives its blocks from operator structure: a bare
+    # closure has none (the JAX package's error)
+    for pkg, eye, ones in ((tls, torch.eye(3), torch.ones(3)),
+                           (jls, jnp.eye(3), jnp.ones(3))):
+        with pytest.raises(ValueError, match="LinearOperator"):
+            pkg.route_solve("cg", lambda v, e=eye: e @ v, ones,
+                            precond="block_jacobi")
     assert set(tls.BACKWARD_MODES) == set(jls.BACKWARD_MODES)
 
 
@@ -189,3 +195,102 @@ def test_solve_auto_and_operator_batch_inference():
                                atol=1e-9)
     with pytest.raises(ValueError, match="incompatible"):
         tls.solve(op, torch.from_numpy(b), batch_axes=1)
+
+
+def _mixed(rng, B, d, nonsym=True):
+    """B systems whose conditioning differs per instance, so each instance
+    stops at its own iteration and the masks matter; two dict leaves
+    (sizes 3 and d - 3) make two blocks for ``block_jacobi``."""
+    A = rng.standard_normal((B, d, d)) / np.sqrt(d)
+    if not nonsym:
+        A = (A + np.swapaxes(A, 1, 2)) / 2
+    shift = np.linspace(1.5, 6.0, B)[:, None, None]
+    return A * np.linspace(0.4, 1.2, B)[:, None, None] + shift * np.eye(d)
+
+
+@pytest.mark.parametrize("precond", [None, "jacobi", "block_jacobi"])
+@pytest.mark.parametrize("batched", [True, False], ids=["batched", "single"])
+@pytest.mark.parametrize("solver", ["bicgstab", "gmres"])
+def test_general_solvers_match_jax(solver, batched, precond):
+    rng = np.random.default_rng(11)
+    B, d = 5, 10
+    A = _mixed(rng, B, d)
+    b = rng.standard_normal((B, d))
+    ex = {"lo": np.zeros((B, 3)), "hi": np.zeros((B, d - 3))}
+    rhs = {"lo": b[:, :3], "hi": b[:, 3:]}
+    if not batched:
+        A, ex, rhs = A[0], {k: v[0] for k, v in ex.items()}, \
+            {k: v[0] for k, v in rhs.items()}
+    opj = jops.DenseOperator(jnp.asarray(A), {k: jnp.asarray(v)
+                                              for k, v in ex.items()})
+    opt = tops.DenseOperator(torch.from_numpy(A), {k: torch.from_numpy(v)
+                                                   for k, v in ex.items()})
+    kw = dict(tol=TOL, maxiter=400, precond=precond, return_info=True)
+    if solver == "gmres":
+        kw["maxiter"] = 60          # 3 restart cycles of 20
+    xj, ij = jls.route_solve(solver, opj, {k: jnp.asarray(v) for k, v
+                                           in rhs.items()}, **kw)
+    xt, it = tls.route_solve(solver, opt, {k: torch.from_numpy(v) for k, v
+                                           in rhs.items()}, **kw)
+    for k in rhs:
+        np.testing.assert_allclose(_np(xt[k]), np.asarray(xj[k]), atol=TOL)
+    np.testing.assert_array_equal(_np(it.iterations), np.asarray(ij.iterations))
+    np.testing.assert_array_equal(_np(it.converged), np.asarray(ij.converged))
+    np.testing.assert_allclose(_np(it.residual), np.asarray(ij.residual),
+                               atol=1e-10)
+    if batched and precond is None and solver == "bicgstab":
+        # the conditioning spread really makes the instances stop apart
+        assert len(set(_np(it.iterations).tolist())) > 1
+
+
+@pytest.mark.parametrize("batched", [True, False], ids=["batched", "single"])
+def test_neumann_matches_jax(batched):
+    rng = np.random.default_rng(12)
+    B, d = 4, 8
+    M = rng.standard_normal((B, d, d))
+    M /= np.linalg.norm(M, 2, axis=(1, 2))[:, None, None]
+    A = np.eye(d) - np.array([0.2, 0.5, 0.7, 0.9])[:, None, None] * M
+    b = rng.standard_normal((B, d))
+    if not batched:
+        A, b = A[2], b[2]
+    opj = jops.DenseOperator(jnp.asarray(A))
+    opt = tops.DenseOperator(torch.from_numpy(A))
+    for kw in (dict(tol=TOL, maxiter=500), dict(tol=0.0, maxiter=7),
+               dict(tol=1e-6, maxiter=500, ridge=0.1)):
+        xj, ij = jls.route_solve("neumann", opj, jnp.asarray(b),
+                                 return_info=True, **kw)
+        xt, it = tls.route_solve("neumann", opt, torch.from_numpy(b),
+                                 return_info=True, **kw)
+        np.testing.assert_allclose(_np(xt), np.asarray(xj), atol=TOL)
+        np.testing.assert_array_equal(_np(it.iterations),
+                                      np.asarray(ij.iterations))
+        np.testing.assert_array_equal(_np(it.converged),
+                                      np.asarray(ij.converged))
+    # the local default is the fixed-K truncation (tol 0, 10 terms)
+    xt = tls.solve_neumann(opt, torch.from_numpy(b),
+                           batch_ndim=int(batched))
+    xj = jls.solve_neumann(opj, jnp.asarray(b), batch_ndim=int(batched))
+    np.testing.assert_allclose(_np(xt), np.asarray(xj), atol=TOL)
+
+
+def test_new_registry_entries_match_jax():
+    for name in ("bicgstab", "gmres", "neumann"):
+        t, j = tls.get_spec(name), jls.get_spec(name)
+        assert (t.symmetric_only, t.matrix_free, t.supports_precond,
+                t.description) == (j.symmetric_only, j.matrix_free,
+                                   j.supports_precond, j.description)
+    assert set(jls.available_solvers()) - set(tls.available_solvers()) == {
+        "sharded_cg", "sharded_normal_cg", "sharded_dense_gmres"}
+
+
+def test_materialize_matrix_matches_jax():
+    rng = np.random.default_rng(13)
+    A = rng.standard_normal((5, 5))
+    At = torch.from_numpy(A)
+    got = tls.materialize_matrix(lambda v: At @ v,
+                                 torch.zeros(5, dtype=torch.float64))
+    want = jls.materialize_matrix(lambda v: jnp.asarray(A) @ v, jnp.zeros(5))
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-12)
+    np.testing.assert_allclose(_np(got), A, atol=1e-12)
+    op = tops.DenseOperator(At)
+    assert tls.materialize_matrix(op, torch.zeros(5)) is op.A

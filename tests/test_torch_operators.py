@@ -216,3 +216,155 @@ class TestAdapters:
         out_t = Mt(from_numpy(v, device="cpu"))
         out_j = Mj(jax.tree_util.tree_map(jnp.asarray, v))
         _close(_flat_np(to_numpy(out_t)), _flat_np(out_j))
+
+
+def _jt(tree):
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+class TestRemainingOperators:
+    """SampledJacobianOperator, BlockDiagonal, ComposedOperator,
+    RaveledOperator and block_jacobi_preconditioner against the JAX
+    package on the same numpy inputs."""
+
+    @pytest.mark.parametrize("symmetric", [None, True])
+    def test_sampled_jacobian_matches_jax(self, rng, symmetric):
+        d, k, n = 4, 3, 6
+        x0 = rng.standard_normal(d)
+        batches = {"X": rng.standard_normal((k, n, d)),
+                   "y": rng.standard_normal((k, n))}
+        v = rng.standard_normal(d)
+
+        def grad_map(lib):
+            def fun(x, batch):
+                X, y = batch["X"], batch["y"]
+                r = X @ x - y
+                t = lib.tanh(x) if lib is jnp else torch.tanh(x)
+                return X.T @ r / n + 0.1 * t ** 3
+            return fun
+
+        Sj = jops.SampledJacobianOperator(grad_map(jnp), jnp.asarray(x0),
+                                          _jt(batches), negate=True,
+                                          symmetric=symmetric)
+        St = tops.SampledJacobianOperator(grad_map(torch), _t(x0),
+                                          from_numpy(batches, device="cpu"),
+                                          negate=True, symmetric=symmetric)
+        assert St.num_samples == Sj.num_samples == k
+        _close(St.matvec(_t(v)), Sj.matvec(jnp.asarray(v)))
+        _close(St.rmatvec(_t(v)), Sj.rmatvec(jnp.asarray(v)))
+        _close(St.materialize(), Sj.materialize())
+        with pytest.raises(ValueError, match="non-empty"):
+            tops.SampledJacobianOperator(grad_map(torch), _t(x0), {})
+
+    @pytest.mark.parametrize("batched", [False, True])
+    def test_block_diagonal_matches_jax(self, rng, batched):
+        shape = (2,) if batched else ()
+        A1 = rng.standard_normal(shape + (3, 3))
+        A2 = rng.standard_normal(shape + (2, 2))
+        A2 = A2 @ np.swapaxes(A2, -1, -2) + np.eye(2)
+        v = (rng.standard_normal(shape + (3,)),
+             rng.standard_normal(shape + (2,)))
+        Bt = tops.BlockDiagonal([tops.DenseOperator(_t(A1)),
+                                 tops.DenseOperator(_t(A2), symmetric=True)])
+        Bj = jops.BlockDiagonal([jops.DenseOperator(jnp.asarray(A1)),
+                                 jops.DenseOperator(jnp.asarray(A2),
+                                                    symmetric=True)])
+        assert Bt.symmetric is Bj.symmetric is None
+        assert Bt.batch_ndim == Bj.batch_ndim == len(shape)
+        vt, vj = tuple(_t(a) for a in v), tuple(jnp.asarray(a) for a in v)
+        for got, want in zip(Bt.matvec(vt), Bj.matvec(vj)):
+            _close(got, want)
+        for got, want in zip(Bt.rmatvec(vt), Bj.rmatvec(vj)):
+            _close(got, want)
+        for got, want in zip(Bt.T.matvec(vt), Bj.T.matvec(vj)):
+            _close(got, want)
+        for got, want in zip(Bt.diagonal(), Bj.diagonal()):
+            _close(got, want)
+        _close(Bt.materialize(), Bj.materialize())
+        spd = tops.BlockDiagonal([tops.DenseOperator(_t(A2),
+                                                     positive_definite=True)])
+        assert spd.positive_definite and spd.T is spd
+        with pytest.raises(ValueError, match="at least one"):
+            tops.BlockDiagonal([])
+        with pytest.raises(ValueError, match="batch_ndim"):
+            tops.BlockDiagonal([tops.DenseOperator(_t(A1[None] if not batched
+                                                      else A1)),
+                                tops.DenseOperator(_t(A2[0] if batched
+                                                      else A2))])
+
+    def test_composed_operator_matches_jax(self, rng):
+        M = rng.standard_normal((4, 4))
+        A = rng.standard_normal((4, 4))
+        v = rng.standard_normal(4)
+        Ct = tops.ComposedOperator(tops.DenseOperator(_t(M)),
+                                   tops.DenseOperator(_t(A)))
+        Cj = jops.ComposedOperator(jops.DenseOperator(jnp.asarray(M)),
+                                   jops.DenseOperator(jnp.asarray(A)))
+        assert Ct.symmetric is None and not Ct.positive_definite
+        _close(Ct.matvec(_t(v)), Cj.matvec(jnp.asarray(v)))
+        _close(Ct.rmatvec(_t(v)), Cj.rmatvec(jnp.asarray(v)))
+        _close(Ct.T.matvec(_t(v)), Cj.T.matvec(jnp.asarray(v)))
+        _close(Ct.materialize(), M @ A)
+        _close(Ct.T.materialize(), (M @ A).T)
+        sym = tops.ComposedOperator(tops.DenseOperator(_t(M)),
+                                    tops.DenseOperator(_t(A)),
+                                    symmetric=True)
+        assert sym.T is sym
+
+    def test_raveled_operator_matches_jax(self, rng):
+        x, v = _examples(rng)
+        Jt = tops.JacobianOperator(_tree_fun_torch(0.7),
+                                   from_numpy(x, device="cpu"))
+        Jj = jops.JacobianOperator(_tree_fun_jax(0.7), _jt(x))
+        Rt, Rj = Jt.raveled(), Jj.raveled()
+        assert Rt.raveled() is Rt
+        vf = _flat_np(v)
+        _close(Rt.ravel(from_numpy(v, device="cpu")), vf)
+        _close(Rt.matvec(_t(vf)), Rj.matvec(jnp.asarray(vf)))
+        _close(Rt.rmatvec(_t(vf)), Rj.rmatvec(jnp.asarray(vf)))
+        _close(Rt.diagonal(), Rj.diagonal())
+        _close(Rt.materialize(), Rj.materialize())
+        back = Rt.unravel(_t(vf))
+        _close(_flat_np(to_numpy(back)), vf)
+        double = Rt.ravel_fn(lambda t: {k: 2 * a for k, a in t.items()})
+        _close(double(_t(vf)), 2 * vf)
+        with pytest.raises(ValueError, match="instance-shaped"):
+            tops.RaveledOperator(tops.DenseOperator(_t(np.ones((2, 3, 3)))))
+
+    def test_block_jacobi_preconditioner_matches_jax(self, rng):
+        # BlockDiagonal: exact per-block inverse, with and without the
+        # dense matrix supplied
+        A1 = rng.standard_normal((3, 3)) + 3 * np.eye(3)
+        A2 = rng.standard_normal((2, 2)) + 3 * np.eye(2)
+        v = (rng.standard_normal(3), rng.standard_normal(2))
+        Bt = tops.BlockDiagonal([tops.DenseOperator(_t(A1)),
+                                 tops.DenseOperator(_t(A2))])
+        Bj = jops.BlockDiagonal([jops.DenseOperator(jnp.asarray(A1)),
+                                 jops.DenseOperator(jnp.asarray(A2))])
+        for mat in (None, Bt.materialize()):
+            Mt = tops.block_jacobi_preconditioner(Bt, materialized=mat)
+            Mj = jops.block_jacobi_preconditioner(
+                Bj, materialized=None if mat is None else jnp.asarray(mat))
+            for got, want in zip(Mt(tuple(_t(a) for a in v)),
+                                 Mj(tuple(jnp.asarray(a) for a in v))):
+                _close(got, want)
+        # any other operator: the domain's pytree leaves are the blocks
+        x, w = _examples(rng)
+        Jt = tops.JacobianOperator(_tree_fun_torch(0.3),
+                                   from_numpy(x, device="cpu"))
+        Jj = jops.JacobianOperator(_tree_fun_jax(0.3), _jt(x))
+        out_t = tops.block_jacobi_preconditioner(Jt)(
+            from_numpy(w, device="cpu"))
+        out_j = jops.block_jacobi_preconditioner(Jj)(_jt(w))
+        _close(_flat_np(to_numpy(out_t)), _flat_np(out_j))
+        # batched leaves
+        A = rng.standard_normal((2, 5, 5)) + 4 * np.eye(5)
+        ex = {"a": np.zeros((2, 3)), "b": np.zeros((2, 2))}
+        u = {"a": rng.standard_normal((2, 3)), "b": rng.standard_normal((2, 2))}
+        Dt = tops.DenseOperator(_t(A), from_numpy(ex, device="cpu"))
+        Dj = jops.DenseOperator(jnp.asarray(A), _jt(ex))
+        got = to_numpy(tops.block_jacobi_preconditioner(Dt)(
+            from_numpy(u, device="cpu")))
+        want = jops.block_jacobi_preconditioner(Dj)(_jt(u))
+        for key in u:
+            _close(got[key], want[key])

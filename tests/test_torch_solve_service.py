@@ -171,9 +171,15 @@ def test_hypergrad_pallas_bucket_goes_through_the_cg_op():
     for f in futs:
         (g,) = f.result().x
         np.testing.assert_allclose(float(g), -5 / 1.5 / 1.5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svc.submit_hypergrad(F, torch.ones(5), torch.tensor(0.5),
-                             torch.ones(5), backward="one_step")
+    # an approximate request takes its own bucket, off the kernel's route
+    f = svc.submit_hypergrad(F, torch.ones(5, dtype=torch.float64) / 1.5,
+                             torch.tensor(0.5, dtype=torch.float64),
+                             torch.ones(5, dtype=torch.float64),
+                             solve="pallas_cg", backward="one_step")
+    svc.flush()
+    assert cg_ops.LAUNCHES == launches
+    assert f.result().info.iterations == 1
+    assert {k.backward for k, _ in svc._compiled} == {"exact", "one_step"}
 
 
 def test_spec_routing_overrides_and_rejections():

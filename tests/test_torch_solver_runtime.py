@@ -9,8 +9,8 @@ equal.  Derivatives through ``run()``: ``torch.autograd.grad`` against
 backward solve at ``linsolve_tol=1e-12`` in both packages, so that the two
 normal-CG runs agree far below that).  Also: ``converged`` is False on NaN
 and at ``maxiter``; the backward solve goes through the registry name it
-was given; the loop runs under ``no_grad``; the parts not ported raise
-``NotImplementedError``.
+was given; the loop runs under ``no_grad``; mesh placement (not ported)
+raises ``NotImplementedError``.
 """
 import types
 
@@ -328,19 +328,28 @@ def test_backward_solve_goes_through_the_named_registry_solver():
 
 
 def test_unported_parts_raise():
+    """Mesh placement still raises (A.11); what A.4 brought now runs: the
+    approximate backward fields (validated as in the reference),
+    ``estimate_hypergrad_error`` and a batch axis over ``run()``."""
     f = lambda x, t: 0.5 * ((x - t) ** 2).sum()
-    with pytest.raises(NotImplementedError, match="A.4"):
-        trt.GradientDescent(f, backward="one_step")
     with pytest.raises(NotImplementedError, match="A.11"):
         trt.GradientDescent(f, sharding=object())
-    solver = trt.GradientDescent(f, stepsize=0.5, maxiter=100, tol=1e-10)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        solver.estimate_hypergrad_error(torch.zeros(2), torch.ones(2))
-    thetas = torch.ones(3, 2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        torch.func.vmap(
-            lambda t: solver.run(torch.zeros(2, dtype=torch.float64), t)[0]
-        )(thetas)
+    with pytest.raises(ValueError, match="backward_iters"):
+        trt.GradientDescent(f, backward="neumann_k", backward_iters=0)
+    approx = trt.GradientDescent(f, backward="one_step")
+    assert approx.diff_spec().backward_kwargs() == {
+        "backward": "one_step", "backward_iters": 8}
+    solver = trt.GradientDescent(f, stepsize=0.5, maxiter=100, tol=1e-10,
+                                 solve="cg")
+    x = torch.ones(2, dtype=torch.float64)
+    # A = -I: the exact backward is exact, its residual ~0
+    assert float(solver.estimate_hypergrad_error(x, x)) < 1e-12
+    thetas = torch.tensor([[1.0, 2.0], [0.5, 0.25], [3.0, -1.0]],
+                          dtype=torch.float64)
+    xs = torch.func.vmap(
+        lambda t: solver.run(torch.zeros(2, dtype=torch.float64), t)[0]
+    )(thetas)
+    np.testing.assert_allclose(_np(xs), _np(thetas), atol=1e-9)
 
 
 def test_l2_optimality_error_matches_jax():
