@@ -9,7 +9,9 @@ implicit hypergradients, and ``custom_root`` implicit differentiation,
 through the hand-written batched-CG kernels (phases 3-8, and 17 and 19:
 batches of hypergradients under ``torch.func.vmap``, the service's
 approximate arm; phases 18 and 20 run the DEQ layer and the other solvers
-and operators, which launch no kernel); the paper's §4.1
+and operators, which launch no kernel; phase 21 the stochastic inner
+solvers at data scale; phase 22 tunes the kernel's layout through the
+autotune cache, phase 23 takes the operation census of a prefill step); the paper's §4.1
 multiclass-SVM hyper-parameter optimisation — ``solve_bilevel`` over a
 ``ProjectedGradient`` inner solver — through the hand-written
 simplex-projection kernel (phases 9-11); and LM serving of ``qwen1.5-4b``
@@ -196,11 +198,54 @@ prints one line:
      within 2e-4 (a solution shifted by one instance is the control); the
      matvecs of a ``ComposedOperator`` and of a ``RaveledOperator`` within
      1e-5 of their materialized matrices (the transpose is the control).
+ 21. stochastic bilevel at data scale (``benchmarks/stochastic_bilevel.py``
+     Part A: per-feature-regularized ridge, the hypergradient of
+     ½‖w* − w_true‖² in the d log-regularizers λ = −2): X (1,048,576 ×
+     512) ~ N(0, 1/d) float32 on the card from ``--seed`` (2 GiB), one
+     epoch of ``SGD`` at B = 1,024 (stepsize 0.5/(1 + 0.02k), Polyak from
+     step 512, ``backward_batches=4``, ``backward_iters=10``, the class
+     defaults ``neumann_k`` + Jacobi on the sampled operator) against
+     full-batch ``GradientDescent`` (stepsize 0.5, tol 1e-6, exact ``cg``
+     backward): cosine ≥ 0.9 (the benchmark's limit; the baseline with its
+     features permuted is the control); ``estimate_hypergrad_error``
+     finite and below 1; ``solve_bilevel`` over 2 steps with
+     ``backward="exact"`` reports an estimate; half an epoch restarted from
+     its state and average equals the epoch bit for bit; ``vmap(grad)``
+     over 8 λ vectors (``backward="exact"``, a counting ``cg``, no
+     preconditioner) runs ONE registry solve where the loop runs 8, within
+     1e-4 of the loop (the loop shifted by one is the control);
+ 22. autotune on the batched-CG kernel, in a fresh tuning cache:
+     ``measure_layout_schedule`` by device time at (64, 512) float32 (C8,
+     stream), (64, 128) float32 (C1, C2, C4, C8, stream) and (64, 512)
+     float64 (stream), every candidate's time printed; ``choose_layout``
+     equals the argmin; a ``linear_solve.solve(method="pallas_cg")`` at
+     each shape launches the rule's layout on the cold cache and the
+     chosen one after the sweep (``ops.LAUNCHES_BY_LAYOUT``), within the
+     phase-3 limits of the plain version; a cache entry naming C1 at
+     d = 512 raises; the cache survives ``save`` → ``load`` through a file
+     under ``build/`` and a subprocess with ``REPRO_AUTOTUNE_CACHE``
+     preloads it; ``measure_solver`` for ``pallas_cg``, ``cg``,
+     ``dense_gmres`` and ``lu`` at (64, 512) float32, predictions
+     "measured" for those and "roofline" for an unmeasured regime, beside
+     the cost model's cold-cache estimate;
+ 23. the operation census (``analysis.op_census``) of one ``qwen1.5-4b``
+     bfloat16 kernel prefill step at phase 16's (4, 2048): the FLOPs of
+     its matrix products within 1 % of 2 · (non-embedding parameters +
+     the LM head) · tokens reckoned from the config (the census with its
+     products left out is the control), the 40 attention launches as
+     custom calls, and ``roofline.analyze``'s compute and memory terms and
+     the step's MFU at phase 16's measured prefill time.
+
+Phases 17-23 each print their duration on a line of their own.  The run
+fails at once if ``REPRO_AUTOTUNE_CACHE`` is set: phases 3-20 hold every
+batched-CG launch to the kernel's rule, which only a cold tuning cache
+gives (``solve_pallas_cg`` takes ``layout="auto"``).
 
 Kernel launches are counted by each kernel's ``ops.LAUNCHES`` (and, for
 batched_cg, ``ops.LAUNCHES_BY_LAYOUT``; for flash attention,
 ``ops.LAUNCHES_BY_ROUTE``), set to 0 just before each main-path phase
-(4-7, 17's batched derivatives and 19's exact buckets for batched_cg,
+(4-7, 17's batched derivatives, 19's exact buckets and 22's solves for
+batched_cg — not 22's sweep, whose launches it prints apart —
 phase 6's forward and backward each on their own, 10 for simplex_proj,
 each kernel prefill of 14 for flash_attention and of 15 for rwkv_wkv; the JSON line reports the bfloat16 one, for flash
 attention its tc launches, and adds the CUDA-core kernel's time as
@@ -220,6 +265,7 @@ import argparse
 import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -324,6 +370,17 @@ EST_RTOL = 1e-3                    # phase 19: estimate against float64
 SOLVERS_TOL = 1e-4                 # phase 20: the solvers' tol, float32;
 #                                    float64 true residual held to 2x it
 MATVEC_RTOL = 1e-5                 # phase 20: operator matvecs
+# phases 21-23 (limits and their readings: PERF.md)
+STOCH = dict(n=1_048_576, d=512, B=1024, backward_batches=4,
+             backward_iters=10, vmap_lams=8)
+STOCH_COS = 0.9                    # phase 21: the benchmark's own limit
+STOCH_VMAP_RTOL = 1e-4             # phase 21: vmap(grad) against the loop
+# phase 22: (B, d, dtype) of the layout sweep: C8 and stream; every layout;
+# the stream route alone
+LAYOUT_SWEEP = [(64, 512, "float32"), (64, 128, "float32"),
+                (64, 512, "float64")]
+SWEEP_TIMING = dict(reps=20, replays=5)
+CENSUS_RTOL = 1e-2                 # phase 23: census against the reckoning
 
 
 def fail(msg: str) -> None:
@@ -665,30 +722,12 @@ def cuda_time_ms(fn, reps):
 
 
 def graph_time_ms(fn, reps, replays=5):
-    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
-    graph and replayed between two CUDA events, so that the host's cost of
-    each call (checks, allocation, the ctypes call) is left out."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):           # warm up off the default stream
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
+    """Device time of one call of ``fn`` in ms: ``reps`` calls captured in
+    a CUDA graph and replayed between two CUDA events, so that the host's
+    cost of each call (checks, allocation, the ctypes call) is left out
+    (``analysis.autotune.device_seconds``)."""
+    from repro_torch.analysis.autotune import device_seconds
+    return device_seconds(fn, reps=reps, replays=replays) * 1e3
 
 
 def profiled_device_ms(fn, reps):
@@ -2105,6 +2144,283 @@ def phase_solvers(device, gen, B, d):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: the stochastic solvers and the analysis layer
+# ---------------------------------------------------------------------------
+
+COUNTING_SOLVER = "chip_smoke_counting_cg"
+
+
+def counting_cg():
+    """A registry CG that appends to the returned list on every call (the
+    registry solves of a run, as ``tests/test_stochastic.py`` counts)."""
+    from repro_torch.core import linear_solve as ls
+    calls = []
+
+    def solve(matvec, b, **kw):
+        calls.append(kw.get("batch_ndim", 0))
+        return ls.solve_cg(matvec, b, **kw)
+
+    ls.register_solver(COUNTING_SOLVER, solve, symmetric_only=True,
+                       supports_precond=True)
+    return calls
+
+
+def phase_stochastic(device, gen, seed, n, d, B, backward_batches,
+                     backward_iters, vmap_lams):
+    """Phase 21: ``benchmarks/stochastic_bilevel.py``'s Part A at data
+    scale — per-feature-regularized ridge, the hypergradient in the d
+    log-regularizers — one epoch of minibatch ``SGD`` against full-batch
+    ``GradientDescent`` with the exact backward."""
+    import dataclasses
+    import torch
+    import torch.func
+    from repro_torch.core import GradientDescent, bilevel
+    from repro_torch.core import linear_solve as ls
+    from repro_torch.stochastic import SGD, MinibatchSampler, run_stochastic
+    from repro_torch.stochastic.solvers import SGDState
+    f32 = torch.float32
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device, dtype=f32)
+
+    X = randn(n, d) / math.sqrt(d)
+    w_true = randn(d)
+    y = X @ w_true + 0.1 * randn(n)
+    lam = torch.full((d,), -2.0, device=device, dtype=f32)
+    w0 = torch.zeros(d, device=device, dtype=f32)
+
+    def fun(w, batch, lam):
+        Xb, yb = batch
+        r = Xb @ w - yb
+        return 0.5 * torch.mean(r ** 2) + \
+            0.5 * torch.sum(torch.exp(lam) * w ** 2)
+
+    def outer(w, lam):
+        return 0.5 * torch.sum((w - w_true) ** 2)
+
+    def hypergrad(solver):
+        return torch.func.grad(lambda t: outer(solver.run(w0, t)[0], t))
+
+    def backward_timed(solver):
+        """The hypergradient by ``torch.autograd.grad``, and the seconds of
+        its backward alone (the forward runs first, untimed)."""
+        t = lam.clone().requires_grad_()
+        loss = outer(solver.run(w0, t)[0], t)
+        (g,), secs = timed(device, lambda: torch.autograd.grad(loss, t))
+        return g, secs
+
+    sampler = MinibatchSampler(data=(X, y), batch_size=B, seed=seed)
+    half = sampler.num_batches // 2
+    sgd = SGD(fun, sampler=sampler, stepsize=lambda k: 0.5 / (1.0 + 0.02 * k),
+              epochs=1, averaging="polyak", average_from=half,
+              backward_batches=backward_batches,
+              backward_iters=backward_iters)
+    res = dict(x_gib=X.numel() * X.element_size() / 2 ** 30,
+               steps=sgd.num_steps())
+    run_stochastic(sgd, w0, lam, steps=2)          # warm-up, not timed
+    (w_bar, info), res["epoch_s"] = timed(
+        device, lambda: run_stochastic(sgd, w0, lam))
+    res["error"] = float(info.error)
+    g_sgd, res["backward_s"] = backward_timed(sgd)
+    ct = torch.func.grad(outer)(w_bar, lam)
+    res["est"], res["est_s"] = timed(device, lambda: float(
+        sgd.estimate_hypergrad_error(w_bar, lam, cotangent=ct)))
+
+    full = GradientDescent(lambda w, t: fun(w, (X, y), t), stepsize=0.5,
+                           maxiter=5000, tol=1e-6, solve="cg")
+    (_, info_full), res["full_fwd_s"] = timed(device,
+                                              lambda: full.run(w0, lam))
+    res["full_iters"] = int(info_full.iterations)
+    res["full_converged"] = bool(info_full.converged)
+    g_full, res["full_bwd_s"] = backward_timed(full)
+    res["cos"] = cosine(g_sgd.double(), g_full.double())
+    perm = torch.randperm(d, generator=gen, device=device)
+    res["cos_control"] = cosine(g_sgd.double(), g_full.double()[perm])
+
+    # solve_bilevel's estimate for a stochastic solver under "exact"
+    sol, res["bilevel_s"] = timed(device, lambda: bilevel.solve_bilevel(
+        outer, dataclasses.replace(sgd, backward="exact"), lam, w0,
+        outer_steps=2, outer_lr=1e-2))
+    est = sol.inner_info.hypergrad_error_estimate
+    res["bilevel_est"] = None if est is None else float(est)
+
+    # restart: half an epoch, then the rest from its state and average
+    w_mid, _ = run_stochastic(sgd, w0, lam, steps=half)
+    w_tail, _ = run_stochastic(
+        sgd, w_mid, lam, steps=sgd.num_steps() - half, start_step=half,
+        init_state=SGDState(half, torch.tensor(math.inf, device=device)),
+        init_average=w_mid)
+    res["restart_equal"] = bool(torch.equal(w_tail, w_bar))
+
+    # a batch of hypergradients in λ: ONE registry solve under vmap
+    calls = counting_cg()
+    try:
+        exact = dataclasses.replace(sgd, backward="exact",
+                                    solve=COUNTING_SOLVER, precond=None)
+        lams = lam + 0.5 * randn(vmap_lams, d)
+        f = hypergrad(exact)
+        calls.clear()
+        g_v, res["vmap_s"] = timed(device, lambda: torch.func.vmap(f)(lams))
+        res["vmap_solves"] = list(calls)
+        calls.clear()
+        g_l, res["loop_s"] = timed(device, lambda: torch.stack(
+            [f(t) for t in lams]))
+        res["loop_solves"] = list(calls)
+    finally:
+        ls._REGISTRY.pop(COUNTING_SOLVER, None)
+    res["vs_loop"] = float(rel_rows(g_v, g_l).max())
+    res["vs_loop_control"] = float(rel_rows(g_v, g_l.roll(1, 0)).max())
+    del X, y
+    free(device)
+    return res
+
+
+def phase_autotune(device, gen, shapes, reps, replays):
+    """Phase 22: ``measure_layout_schedule`` / ``choose_layout`` on the
+    batched-CG kernel through a fresh tuning cache, the ``pallas_cg``
+    solves that take its choice, the cache's file round trip and
+    ``REPRO_AUTOTUNE_CACHE``, and ``measure_solver`` /
+    ``predict_solve_seconds`` at (64, 512) float32."""
+    import os
+    import torch
+    from repro_torch.analysis import autotune, roofline
+    from repro_torch.core import linear_solve as ls
+    from repro_torch.core.operators import DenseOperator
+    from repro_torch.kernels.batched_cg import kernel, ref
+    res = dict(shapes={}, launches=0, sweep_launches=0)
+    cache = autotune.TuningCache()
+    with autotune.use_cache(cache):
+        for B, d, dt in shapes:
+            dtype = getattr(torch, dt)
+            A, b, _, _ = ridge_batch(gen, B, d, 2 * d, dtype, device)
+            op = DenseOperator(A, positive_definite=True)
+            tol = CG_TOL[dt]
+            row = dict(rule=kernel.layout(d, dtype))
+            cg_counts(reset=True)
+            ls.solve(op, b, method="pallas_cg", tol=tol)
+            sync(device)
+            row["cold"] = cg_counts()[1]
+            recs = autotune.measure_layout_schedule(
+                B, d, dtype=dt, cache=cache, tol=tol, reps=reps,
+                replays=replays, device=device)
+            row["ms"] = {k: r.seconds * 1e3 for k, r in recs.items()}
+            row["candidates"] = autotune.layout_candidates(d, dt)
+            res["sweep_launches"] += len(recs) * (3 + reps * (1 + replays))
+            row["argmin"] = min(recs, key=lambda k: recs[k].seconds)
+            row["chosen"] = autotune.choose_layout(B, d, dtype)
+            cg_counts(reset=True)
+            x = ls.solve(op, b, method="pallas_cg", tol=tol)
+            sync(device)
+            row["tuned"] = cg_counts()[1]
+            res["launches"] += 2
+            row["err"] = rel(x, ref.batched_cg_ref(A, b, tol=tol,
+                                                   maxiter=1000))
+            res["shapes"][(B, d, dt)] = row
+        # control: an entry whose layout does not fit d must raise
+        bad = autotune.TuningCache()
+        B, d, dt = shapes[0]
+        bad.put(autotune.TuningKey("cuda", "batched_cg", B, d, dt, 1, "",
+                                   "layout=C1"), 1e-9)
+        A, b, _, _ = ridge_batch(gen, B, d, 2 * d, getattr(torch, dt),
+                                 device)
+        with autotune.use_cache(bad):
+            try:
+                ls.solve(DenseOperator(A, positive_definite=True), b,
+                         method="pallas_cg")
+                res["misfit"] = "no error"
+            except ValueError as e:
+                res["misfit"] = str(e)
+        # the solvers' measured times and the predictions
+        res["solvers"] = {}
+        for solver in ("pallas_cg", "cg", "dense_gmres", "lu"):
+            rec = autotune.measure_solver(solver, 64, 512, cache=cache,
+                                          tol=1e-6, device=device)
+            secs, source = autotune.predict_solve_seconds(solver, 64, 512)
+            res["solvers"][solver] = dict(ms=rec.seconds * 1e3,
+                                          predicted_ms=secs * 1e3,
+                                          source=source)
+        res["unmeasured"] = autotune.predict_solve_seconds("cg", 64, 256)
+        res["roofline_ms"] = roofline.analyze_solve(64, 512).step_time_s \
+            * 1e3
+    # the cache's file, and a process that preloads it
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = cache.save(ROOT / "build" / "autotune_phase22")
+    res["round_trip"] = autotune.TuningCache.load(path).items() \
+        == cache.items()
+    B, d, dt = shapes[1]
+    code = ("import sys; sys.path.insert(0, 'src'); import torch; "
+            "from repro_torch.analysis import autotune as a; "
+            f"print(len(a.default_cache()), a.choose_layout({B}, {d}, "
+            f"torch.{dt}))")
+    env = dict(os.environ, **{autotune.CACHE_ENV_VAR: path})
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    res["preloaded"] = out.stdout.split() or [out.stderr[-300:]]
+    res["want_preloaded"] = [str(len(cache)),
+                             res["shapes"][(B, d, dt)]["chosen"]]
+    res["cache_entries"] = len(cache)
+    return res
+
+
+def dense_matrix_params(cfg) -> tuple:
+    """(non-embedding parameters, LM head parameters) of a dense config,
+    reckoned from its widths: attention with its biases, the MLP's
+    matrices, two norms a layer and the final norm."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    attn = 2 * d * H * hd + 2 * d * Hkv * hd
+    if cfg.qkv_bias:
+        attn += (H + 2 * Hkv) * hd
+    mlp = (3 if cfg.mlp_activation == "silu" else 2) * d * cfg.d_ff
+    return cfg.num_layers * (attn + mlp + 2 * d) + d, d * cfg.vocab_size
+
+
+def phase_census(device, seed, arch, prefill_s):
+    """Phase 23: the operation census and the roofline of one kernel
+    prefill step of ``arch`` (phase 16's (B, S) in bfloat16)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import configs
+    from repro_torch.analysis import op_census, roofline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import init_params
+    from repro_torch.runtime import make_prefill_step
+    cfg = configs.get(arch)
+    gen = torch.Generator(device=device).manual_seed(seed + 23)
+    params = init_params(cfg, gen, device=device)
+    B, S = LM_PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=device)
+    step = make_prefill_step(cfg, use_kernel=True)
+    step(params, tokens)
+    before = fa_ops.LAUNCHES
+    costs, census_s = timed(device, lambda: op_census.analyze_module(
+        step, params, tokens))
+    nonemb, head = dense_matrix_params(cfg)
+    tree = (sum(t.numel() for t in pytree.tree_leaves(
+        (params["blocks"], params["final_norm"]))),
+        params["embed"]["unembed"].numel())
+    T = B * S
+    want = 2.0 * (nonemb + head) * T
+    model_flops = roofline.model_flops_decode(nonemb + head, T)
+    terms = roofline.analyze(costs.cost_dict(), 0.0, 1, model_flops)
+    res = dict(flops=costs.flops, want=want, bytes=costs.hbm_bytes,
+               rel=abs(costs.flops - want) / want,
+               by_op=dict(costs.flops_by_op),
+               custom_calls=dict(costs.custom_calls),
+               launches=fa_ops.LAUNCHES - before, census_s=census_s,
+               nonemb=nonemb, head=head, tree=tree, terms=terms,
+               mfu=model_flops / (prefill_s * roofline.PEAK_FLOPS),
+               prefill_ms=prefill_s * 1e3)
+    # control: the census with its products left out
+    left = costs.flops - max(costs.flops_by_op.values(), default=0.0)
+    res["control"] = abs(left - want) / want
+    del params, tokens
+    free(device)
+    return res
+
+
 def zeroed(op):
     """A replacement of a kernel op whose attention / WKV output is 0."""
     def fn(*args, **kw):
@@ -2143,6 +2459,9 @@ def main(argv=None) -> None:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on an NVIDIA GPU")
+    if os.environ.get("REPRO_AUTOTUNE_CACHE"):
+        fail("REPRO_AUTOTUNE_CACHE is set: phase 3 holds every launch to the "
+             "kernel's rule, which only a cold tuning cache gives; unset it")
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT / 'src' / 'repro_torch'} not found: run chip_smoke.py "
              "from a checkout of the repository")
@@ -2416,6 +2735,7 @@ def main(argv=None) -> None:
             for r in (s14, s15)))
 
     # 17. a batch of hypergradients as one batched solve
+    t_phase = time.perf_counter()
     s17 = phase_vmap_hypergrad(device, gen, B=64, d=512, m=1024)
     check(s17["fwd_launches"] == 0, "phase 17: the wrapped solver's "
           f"forward launched the kernel {s17['fwd_launches']} times")
@@ -2461,7 +2781,10 @@ def main(argv=None) -> None:
         f"{run17['grad_s']:.3f} s, rel vs closed form at the converged "
         f"x* {run17['grad_vs_closed']:.2e} (information)")
 
+    say("17 time", f"{time.perf_counter() - t_phase:.1f} s")
+
     # 18. the DEQ layer at full width
+    t_phase = time.perf_counter()
     s18 = phase_deq(device, gen, **DEQ)
     check(s18["converged"], f"phase 18: the DEQ forward did not converge "
           f"(error {s18['fwd_error']:.3e} > {s18['fwd_tol']:.3e})")
@@ -2498,7 +2821,10 @@ def main(argv=None) -> None:
         f"{u18['rel']:.2e} (limit {DEQ_UNROLL_RTOL}, jacobian_free control "
         f"{u18['control']:.2e})")
 
+    say("18 time", f"{time.perf_counter() - t_phase:.1f} s")
+
     # 19. the service's approximate arm
+    t_phase = time.perf_counter()
     s19 = phase_approx_service(device, gen, **APPROX)
     rows19 = s19["rows"]
     check(s19["launches"] == 2 and s19["by_layout"] == {MAIN_LAYOUT: 2},
@@ -2539,7 +2865,10 @@ def main(argv=None) -> None:
                                    f"{row['est_control']:.2e})")
             for (rho, mode), row in rows19.items()))
 
+    say("19 time", f"{time.perf_counter() - t_phase:.1f} s")
+
     # 20. the new solvers and operators
+    t_phase = time.perf_counter()
     s20 = phase_solvers(device, gen, B=64, d=512)
     for solver in ("bicgstab", "gmres", "neumann", "block_jacobi"):
         r = s20[solver]
@@ -2567,9 +2896,127 @@ def main(argv=None) -> None:
         f" (control {mv20['composed_control']:.2e}), RaveledOperator "
         f"{mv20['raveled']:.2e} (control {mv20['raveled_control']:.2e})")
 
+    say("20 time", f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 21. stochastic bilevel at data scale
+    t_phase = time.perf_counter()
+    s21 = phase_stochastic(device, gen, args.seed, **STOCH)
+    check(s21["cos"] >= STOCH_COS > s21["cos_control"], f"phase 21: "
+          f"hypergradient cosine {s21['cos']:.6f} against the full-batch "
+          f"baseline (limit {STOCH_COS}, permuted control "
+          f"{s21['cos_control']:.6f})")
+    check(s21["full_converged"], "phase 21: the full-batch baseline did "
+          "not converge")
+    check(math.isfinite(s21["est"]) and s21["est"] < 1, f"phase 21: "
+          f"estimate_hypergrad_error {s21['est']}")
+    check(s21["bilevel_est"] is not None and math.isfinite(
+        s21["bilevel_est"]), f"phase 21: solve_bilevel under "
+          f"backward='exact' reported the estimate {s21['bilevel_est']}")
+    check(s21["restart_equal"], "phase 21: the restarted half epoch does "
+          "not replay the whole epoch bit for bit")
+    n_lams = STOCH["vmap_lams"]
+    check(len(s21["vmap_solves"]) == 1 and len(s21["loop_solves"]) == n_lams,
+          f"phase 21: vmap(grad) over {n_lams} λ ran the registry solves "
+          f"{s21['vmap_solves']}, the loop {s21['loop_solves']}")
+    check(s21["vs_loop"] <= STOCH_VMAP_RTOL < s21["vs_loop_control"],
+          f"phase 21: vmap against the loop {s21['vs_loop']:.3e} (limit "
+          f"{STOCH_VMAP_RTOL}, control {s21['vs_loop_control']:.3e})")
+    say("21 stochastic", f"ridge n={STOCH['n']} d={STOCH['d']} float32 "
+        f"(X {s21['x_gib']:.2f} GiB on the card), hypergradient in the d "
+        f"log-regularizers: SGD B={STOCH['B']} {s21['steps']} steps (one "
+        f"epoch, Polyak from half) in {s21['epoch_s']:.3f} s, full-batch "
+        f"residual {s21['error']:.3e}; backward (sampled operator, "
+        f"neumann_k k={STOCH['backward_iters']} + Jacobi, "
+        f"{STOCH['backward_batches']} batches) {s21['backward_s']:.3f} s; "
+        f"baseline GD {s21['full_iters']} iterations in "
+        f"{s21['full_fwd_s']:.3f} s, its exact cg backward "
+        f"{s21['full_bwd_s']:.3f} s; cosine {s21['cos']:.6f} (limit "
+        f"{STOCH_COS}, permuted control {s21['cos_control']:.6f}); "
+        f"estimate_hypergrad_error {s21['est']:.4e} ({s21['est_s']:.3f} s);"
+        f" solve_bilevel 2 steps backward='exact' estimate "
+        f"{s21['bilevel_est']:.4e} in {s21['bilevel_s']:.3f} s; restart at "
+        f"step {s21['steps'] // 2}: bit for bit; vmap(grad) over {n_lams} λ: "
+        f"{len(s21['vmap_solves'])} registry solve in {s21['vmap_s']:.3f} s,"
+        f" loop {len(s21['loop_solves'])} in {s21['loop_s']:.3f} s, rel "
+        f"{s21['vs_loop']:.2e} (limit {STOCH_VMAP_RTOL}, control "
+        f"{s21['vs_loop_control']:.2e})")
+    say("21 time", f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 22. autotune on the batched-CG kernel
+    t_phase = time.perf_counter()
+    s22 = phase_autotune(device, gen, LAYOUT_SWEEP, **SWEEP_TIMING)
+    for key, row in s22["shapes"].items():
+        check(list(row["ms"]) == row["candidates"], f"phase 22: at {key} "
+              f"the sweep timed {list(row['ms'])}, the layouts that fit are "
+              f"{row['candidates']}")
+        check(row["cold"] == {row["rule"]: 1}, f"phase 22: at {key} the "
+              f"cold cache launched {row['cold']}, the rule gives "
+              f"{row['rule']}")
+        check(row["chosen"] == row["argmin"], f"phase 22: at {key} "
+              f"choose_layout gave {row['chosen']}, the argmin is "
+              f"{row['argmin']}")
+        check(row["tuned"] == {row["chosen"]: 1}, f"phase 22: at {key} the "
+              f"tuned solve launched {row['tuned']}, not {row['chosen']}")
+        check(row["err"] <= RTOL[key[2]], f"phase 22: at {key} the tuned "
+              f"layout is {row['err']:.3e} from the plain version")
+    check("does not fit" in s22["misfit"], f"phase 22: a cache entry "
+          f"naming C1 at d=512 did not raise ({s22['misfit']})")
+    check(s22["round_trip"], "phase 22: the cache changed in save/load")
+    check(s22["preloaded"] == s22["want_preloaded"], f"phase 22: a process "
+          f"with REPRO_AUTOTUNE_CACHE read {s22['preloaded']}, expected "
+          f"{s22['want_preloaded']}")
+    check(all(r["source"] == "measured" for r in s22["solvers"].values())
+          and s22["unmeasured"][1] == "roofline", f"phase 22: predictions "
+          f"{ {k: r['source'] for k, r in s22['solvers'].items()} }, "
+          f"unmeasured {s22['unmeasured'][1]}")
+    say("22 autotune", f"[{card}] batched_cg layouts by device time (ms), "
+        "rule → tuned choice: " + "; ".join(
+            f"{key}: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                   row["ms"].items())
+            + f"; rule {row['rule']} → {row['chosen']} (rel vs plain "
+            f"{row['err']:.2e})" for key, row in s22["shapes"].items())
+        + f"; sweep launches {s22['sweep_launches']} (not the main path); "
+        f"misfit C1 at d=512 raised; cache of {s22['cache_entries']} "
+        "entries saved, loaded and preloaded in a subprocess by "
+        "REPRO_AUTOTUNE_CACHE; measure_solver (64, 512) float32 median ms: "
+        + ", ".join(f"{k} {r['ms']:.3f} ({r['source']})"
+                    for k, r in s22["solvers"].items())
+        + f"; the cost model's cold-cache estimate (roofline.analyze_solve,"
+        f" A re-read every iteration) {s22['roofline_ms']:.4f} ms; "
+        f"unmeasured (64, 256) cg: {s22['unmeasured'][1]}")
+    say("22 time", f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 23. op census and roofline of the qwen1.5-4b prefill step
+    t_phase = time.perf_counter()
+    s23 = phase_census(device, args.seed, "qwen1.5-4b", s14["kernel_s"])
+    check(s23["tree"] == (s23["nonemb"], s23["head"]), f"phase 23: the "
+          f"parameters hold {s23['tree']}, the config gives "
+          f"{(s23['nonemb'], s23['head'])}")
+    check(s23["rel"] <= CENSUS_RTOL < s23["control"], f"phase 23: census "
+          f"FLOPs {s23['flops']:.6e} against {s23['want']:.6e}: rel "
+          f"{s23['rel']:.3e} (limit {CENSUS_RTOL}, control "
+          f"{s23['control']:.3e})")
+    check(s23["custom_calls"] == {"flash_attention": 40} and
+          s23["launches"] == 40, f"phase 23: custom calls "
+          f"{s23['custom_calls']}, launches {s23['launches']}")
+    tm = s23["terms"]
+    say("23 census", f"[{card}] qwen1.5-4b bf16 prefill {LM_PREFILL}: "
+        f"census FLOPs {s23['flops']:.6e} ({s23['by_op']}) against 2·(non-"
+        f"embedding {s23['nonemb']} + head {s23['head']})·tokens = "
+        f"{s23['want']:.6e}: rel {s23['rel']:.3e} (limit {CENSUS_RTOL}, "
+        f"products left out {s23['control']:.3e}); bytes "
+        f"{s23['bytes']:.6e} (every eager op, the kernels' custom calls "
+        f"{s23['custom_calls']}); census run {s23['census_s']:.3f} s; "
+        f"roofline compute {tm.compute_s * 1e3:.4f} ms, memory "
+        f"{tm.memory_s * 1e3:.4f} ms ({tm.dominant}), its mfu "
+        f"{tm.mfu:.4f}; at phase 16's measured {s23['prefill_ms']:.2f} ms "
+        f"the step's mfu is {s23['mfu']:.4f}")
+    say("23 time", f"{time.perf_counter() - t_phase:.1f} s")
+
     launches = s4["launches"] + s5["launches"] + s6["fwd"] + s6["bwd"] \
         + s7["launches"] + s17["grad"]["launches"] \
-        + s17["jvp"]["launches"] + run17["launches"] + s19["launches"]
+        + s17["jvp"]["launches"] + run17["launches"] + s19["launches"] \
+        + s22["launches"]
     print(json.dumps({"kernels": [{
         "name": "batched_cg", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,

@@ -8,10 +8,15 @@ caller passes ``device="cpu"``.
 
 Ported so far: the linear operators, the solve registry, the
 implicit-diff API, the solver runtime and the bilevel driver (``core``);
-the observability layer; the solve service, the LM serving engine and
-the serve steps (``runtime``); the dense and RWKV-6 models (``models``,
+the stochastic inner solvers (``stochastic``); the roofline model, the
+tuning cache behind dispatch and the operation census (``analysis``); the
+observability layer; the solve service, the LM serving engine and the
+serve steps (``runtime``); the dense and RWKV-6 models (``models``,
 ``configs``); the launcher (``launch.serve``); ``interop`` for moving
 problem data, state and model weights between the packages; and the four
 kernels, written by hand in CUDA for Hopper (``kernels``).  ROADMAP.md
 lists what is still to port.
 """
+
+__all__ = ["analysis", "configs", "core", "interop", "kernels", "launch",
+           "models", "observability", "runtime", "stochastic"]

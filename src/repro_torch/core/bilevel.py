@@ -20,9 +20,10 @@ Differences from the JAX driver:
   * ``jit=`` has no counterpart (PyTorch runs eagerly) and is not taken.
 
 ``backward`` / ``backward_iters`` select an approximate hypergradient;
-with an ``IterativeSolver`` running such a mode, each step's
-``inner_info.hypergrad_error_estimate`` reports the relative residual of
-the cotangent system at the outer loss's cotangent.
+with an ``IterativeSolver`` running such a mode, or a stochastic inner
+solver in any mode, each step's ``inner_info.hypergrad_error_estimate``
+reports the relative residual of the cotangent system at the outer loss's
+cotangent.
 """
 from __future__ import annotations
 
@@ -227,7 +228,9 @@ def solve_bilevel(outer_loss: Callable,
     the θ pytree passes through unchanged.  ``warm_start`` reuses the
     previous inner solution as init.  ``backward`` / ``backward_iters``
     select an approximate hypergradient; with an ``IterativeSolver`` in
-    such a mode (and ``error_estimate=True``, its default) each step's
+    such a mode, or a stochastic one (``is_stochastic``: it solves against
+    a sampled operator) in any mode, and ``error_estimate=True``, its
+    default, each step's
     ``inner_info.hypergrad_error_estimate`` is the relative residual of
     the cotangent system at the outer loss's cotangent, one more
     backward application and matvec a step.  Each step adds one to the global
@@ -254,9 +257,15 @@ def solve_bilevel(outer_loss: Callable,
                  for p, g in zip(params, grads)]
         return val.detach(), slots, grads, _detached(x_star), info
 
+    # approximate backward modes AND stochastic inner solvers both give a
+    # hypergradient whose backward system differs from the exact
+    # full-batch one (a StochasticSolver solves against a sampled operator
+    # even under backward="exact"); either way the estimate re-measures
+    # the cotangent residual against the full-batch operator
     est_solver = getattr(implicit_solver, "solver", None)
-    estimate = est_solver is not None and est_solver.error_estimate and \
+    estimate = est_solver is not None and est_solver.error_estimate and (
         est_solver.backward != "exact"
+        or getattr(est_solver, "is_stochastic", False))
 
     def estimate_fn(x_star, theta):
         ct = torch.func.grad(outer_loss, argnums=0)(x_star, theta)

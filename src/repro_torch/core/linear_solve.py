@@ -732,8 +732,13 @@ def solve_pallas_cg(matvec: Callable, b, *, init=None, tol: float = 1e-6,
     Dense small-system regime (d ≤ ``MAX_DENSE_DIM``): the whole batch of
     (d × d) systems is one launch of the hand-written kernel on CUDA
     tensors (``ref.py`` on CPU tensors), with per-instance convergence.
-    Always starts from zero and takes no preconditioner; ``iterations`` is
-    reported as -1 (the kernel does not return its counts).
+    The kernel's layout is ``"auto"``: it resolves through the tuning
+    cache (``analysis.autotune.choose_layout``) per ``(backend, B, d,
+    dtype)``, the kernel's own rule when the regime was never measured —
+    so the solve service's buckets and every backward solve routed here
+    take tuned layouts with no caller changes.  Always starts from zero
+    and takes no preconditioner; ``iterations`` is reported as -1 (the
+    kernel does not return its counts).
     """
     if init is not None:
         raise ValueError("pallas_cg always starts from zero; warm starts "
@@ -750,7 +755,8 @@ def solve_pallas_cg(matvec: Callable, b, *, init=None, tol: float = 1e-6,
             f"pallas_cg materializes dense systems; d={d} exceeds "
             f"MAX_DENSE_DIM={MAX_DENSE_DIM} — use a matrix-free solver")
     A, _ = materialize_batched(matvec, b, batch_ndim, view=view)
-    x = batched_cg(A, view.b, tol=tol, maxiter=maxiter, device=A.device)
+    x = batched_cg(A, view.b, tol=tol, maxiter=maxiter, device=A.device,
+                   layout="auto")
     if return_info:
         r = view.b - torch.einsum("bij,bj->bi", A, x)
         rn = torch.linalg.vector_norm(r, dim=-1)

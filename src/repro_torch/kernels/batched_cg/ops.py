@@ -16,9 +16,17 @@ Ax − b = 0, so
     u  = A⁻ᵀ g          (one more batched solve, the same kernel on Aᵀ)
     ∂b = u,   ∂A = −u xᵀ
 
+``layout=`` picks the kernel's layout: ``None`` keeps the rule, a name of
+``kernel.LAYOUTS`` is passed to the kernel, and ``"auto"`` resolves on
+the host, before the launch, through ``analysis.autotune.choose_layout``
+(the measured argmin of the tuning cache; the rule on a cold cache).  The
+forward and the backward solve launch the same layout.  On CPU tensors
+the argument is ignored: the plain version has no layouts.
+
 ``LAUNCHES`` counts every kernel launch, forward and backward, and
 ``LAUNCHES_BY_LAYOUT`` splits them by layout (plain ints, for showing
-that a run went through the kernels).
+that a run went through the kernels).  Each launch is also recorded in
+an active ``analysis.op_census.Census`` as a custom call.
 
 The JAX op's ``block_b``, ``interpret`` and ``pad_lanes`` arguments are
 TPU tile parameters (VMEM tile height, Pallas interpret mode, 128-lane
@@ -31,6 +39,7 @@ from typing import Optional
 import torch
 
 from repro_torch import _device
+from repro_torch.analysis import autotune, op_census
 from repro_torch.core.operators import LinearOperator, ravel_view
 from repro_torch.kernels.batched_cg import kernel
 from repro_torch.kernels.batched_cg.ref import batched_cg_ref
@@ -39,19 +48,27 @@ LAUNCHES = 0
 LAUNCHES_BY_LAYOUT = {name: 0 for name in kernel.LAYOUTS}
 
 
+def _compute_dtype(A: torch.Tensor, b: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(torch.promote_types(A.dtype, b.dtype),
+                               torch.float32)
+
+
 def _solve(A: torch.Tensor, b: torch.Tensor, tol: float, maxiter: int,
-           transpose: bool = False) -> torch.Tensor:
-    """One batched solve: a kernel on CUDA tensors, ``ref`` on CPU ones."""
+           transpose: bool = False,
+           layout: Optional[str] = None) -> torch.Tensor:
+    """One batched solve: a kernel on CUDA tensors (``layout``, or the
+    rule's), ``ref`` on CPU ones."""
     global LAUNCHES
     if A.device.type == "cuda":
-        dtype = torch.promote_types(torch.promote_types(A.dtype, b.dtype),
-                                    torch.float32)
-        name = kernel.layout(A.shape[-1], dtype)
-        x = kernel.launch(A.to(dtype).contiguous(),
-                          b.to(dtype).contiguous(), tol=tol,
-                          maxiter=maxiter, transpose=transpose, layout=name)
+        dtype = _compute_dtype(A, b)
+        name = kernel.layout(A.shape[-1], dtype) if layout is None \
+            else layout
+        A, b_in = A.to(dtype).contiguous(), b.to(dtype).contiguous()
+        x = kernel.launch(A, b_in, tol=tol, maxiter=maxiter,
+                          transpose=transpose, layout=name)
         LAUNCHES += 1
         LAUNCHES_BY_LAYOUT[name] += 1
+        op_census.record_custom_call("batched_cg", (A, b_in), x)
         return x.to(b.dtype)
     if A.device.type == "cpu":
         return batched_cg_ref(A.transpose(1, 2) if transpose else A, b,
@@ -64,25 +81,26 @@ class _BatchedCG(torch.autograd.Function):
     """x = A⁻¹ b with the implicit-function backward."""
 
     @staticmethod
-    def forward(A, b, tol, maxiter):
-        return _solve(A, b, tol, maxiter)
+    def forward(A, b, tol, maxiter, layout):
+        return _solve(A, b, tol, maxiter, layout=layout)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        A, _, tol, maxiter = inputs
+        A, _, tol, maxiter, layout = inputs
         ctx.save_for_backward(A, output)
-        ctx.tol, ctx.maxiter = tol, maxiter
+        ctx.tol, ctx.maxiter, ctx.layout = tol, maxiter, layout
 
     @staticmethod
     def backward(ctx, g):
         A, x = ctx.saved_tensors
-        u = _solve(A, g, ctx.tol, ctx.maxiter, transpose=True)
+        u = _solve(A, g, ctx.tol, ctx.maxiter, transpose=True,
+                   layout=ctx.layout)
         dA = -u[:, :, None] * x[:, None, :]
-        return dA, u, None, None
+        return dA, u, None, None, None
 
 
 def batched_cg(A, b, *, tol: float = 1e-6, maxiter: Optional[int] = None,
-               device=None):
+               device=None, layout: Optional[str] = None):
     """Solve the batch of SPD systems A[i] x[i] = b[i].
 
     Args:
@@ -95,6 +113,11 @@ def batched_cg(A, b, *, tol: float = 1e-6, maxiter: Optional[int] = None,
       maxiter: CG iteration cap (default: d, the exact-arithmetic bound).
       device: where to solve; ``None`` means ``cuda`` (raises on a host
         without one).  Inputs are moved there.
+      layout: the kernel's layout on CUDA tensors: ``None`` (the rule,
+        ``kernel.layout``), a name of ``kernel.LAYOUTS``, or ``"auto"``
+        (``autotune.choose_layout``: the tuning cache's measured argmin,
+        the rule on a cold cache).  A layout whose slice does not fit
+        raises.  Ignored on CPU tensors.
 
     Differentiable in A and b through the implicit-diff backward (operator
     input: in b, through the materialized matrix).  Computes in
@@ -109,7 +132,7 @@ def batched_cg(A, b, *, tol: float = 1e-6, maxiter: Optional[int] = None,
         if A.batch_ndim == 0:
             dense = dense[None]
         x = batched_cg(dense, view.b, tol=tol, maxiter=maxiter,
-                       device=device)
+                       device=device, layout=layout)
         return view.to_tree(x)
     dev = _device.resolve(device)
     A = torch.as_tensor(A).to(dev)
@@ -118,6 +141,15 @@ def batched_cg(A, b, *, tol: float = 1e-6, maxiter: Optional[int] = None,
             tuple(b.shape) != tuple(A.shape[:2]):
         raise ValueError(f"batched_cg expects A (B, d, d) and b (B, d); got "
                          f"{tuple(A.shape)} and {tuple(b.shape)}")
+    if layout is not None and layout != "auto" and \
+            layout not in kernel.LAYOUTS:
+        raise ValueError(f"batched_cg layout must be None, 'auto' or one of "
+                         f"{kernel.LAYOUTS}; got {layout!r}")
+    if A.device.type != "cuda":
+        layout = None
+    elif layout == "auto":
+        layout = autotune.choose_layout(A.shape[0], A.shape[-1],
+                                        _compute_dtype(A, b))
     if maxiter is None:
         maxiter = A.shape[-1]
-    return _BatchedCG.apply(A, b, float(tol), int(maxiter))
+    return _BatchedCG.apply(A, b, float(tol), int(maxiter), layout)

@@ -31,7 +31,9 @@ the port's ``ref.attention_ref`` are top-left; the models only call it
 with Sq = Sk, where the two conventions agree.
 
 ``LAUNCHES`` counts kernel launches and ``LAUNCHES_BY_ROUTE`` splits them
-by route (plain ints, for showing that a run went through the kernels).
+by route (plain ints, for showing that a run went through the kernels);
+each launch is also recorded in an active ``analysis.op_census.Census``
+as a custom call.
 The JAX op's ``block_q``, ``block_k`` and ``interpret`` are TPU parameters
 and have no counterpart here.
 """
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import op_census
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -62,6 +65,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = kernel.launch(q, k, v, causal, route_name=name)
         LAUNCHES += 1
         LAUNCHES_BY_ROUTE[name] += 1
+        op_census.record_custom_call("flash_attention", (q, k, v), out)
         return out
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)

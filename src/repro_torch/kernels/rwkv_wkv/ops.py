@@ -17,7 +17,8 @@ multiple of its chunk, min(64, T)).  The kernel copies r, k, v and w in
 at an odd offset) is copied first.
 
 ``LAUNCHES`` counts kernel launches (a plain int, for showing that a run
-went through the kernel).  The JAX op's ``chunk`` and ``interpret`` are
+went through the kernel); each launch is also recorded in an active
+``analysis.op_census.Census`` as a custom call.  The JAX op's ``chunk`` and ``interpret`` are
 TPU parameters and have no counterpart here.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import op_census
 from repro_torch.kernels.rwkv_wkv import kernel
 from repro_torch.kernels.rwkv_wkv.ref import wkv_scan_ref
 
@@ -50,11 +52,12 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             raise RuntimeError("the rwkv_wkv kernel is forward only; run it "
                                "under torch.no_grad()")
         f32 = torch.float32
-        out = kernel.launch(
-            _aligned(r), _aligned(k), _aligned(v), _aligned(w.to(f32)),
-            u.to(f32).contiguous(),
-            None if state0 is None else state0.to(f32).contiguous())
+        args = (_aligned(r), _aligned(k), _aligned(v), _aligned(w.to(f32)),
+                u.to(f32).contiguous(),
+                None if state0 is None else state0.to(f32).contiguous())
+        out = kernel.launch(*args)
         LAUNCHES += 1
+        op_census.record_custom_call("rwkv_wkv", args, out)
         return out
     if r.device.type == "cpu":
         return wkv_scan_ref(r, k, v, w, u, state0)

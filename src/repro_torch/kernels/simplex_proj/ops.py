@@ -22,13 +22,15 @@ backward needs: ``JacobianOperator`` applies ``torch.func.jvp`` / ``vjp``
 of a fixed point that contains it, and materializes by ``vmap``.
 
 ``LAUNCHES`` counts kernel launches (a plain int, for showing that a run
-went through the kernel).  The JAX op's ``interpret`` argument and the
+went through the kernel); each launch is also recorded in an active
+``analysis.op_census.Census`` as a custom call.  The JAX op's ``interpret`` argument and the
 kernel's ``rows_block`` are TPU parameters and have no counterpart here.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import op_census
 from repro_torch.kernels.simplex_proj import kernel
 from repro_torch.kernels.simplex_proj.ref import projection_simplex_rows_ref
 
@@ -41,8 +43,10 @@ def _project_rows(y: torch.Tensor, scale: float) -> torch.Tensor:
     if y.device.type == "cuda":
         work = y if y.dtype in (torch.float32, torch.float64) \
             else y.to(torch.float32)
-        x = kernel.launch(work.contiguous(), scale)
+        work = work.contiguous()
+        x = kernel.launch(work, scale)
         LAUNCHES += 1
+        op_census.record_custom_call("simplex_proj", work, x)
         return x.to(y.dtype)
     if y.device.type == "cpu":
         return projection_simplex_rows_ref(y, scale)

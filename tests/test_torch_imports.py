@@ -5,7 +5,10 @@ An AST scan of every module under ``src/repro_torch/`` and of
 ``import repro`` / ``from repro ...`` (``repro_torch`` itself is fine).
 The port's observability package exports the reference's public names,
 ``jit_event`` and ``jit_event_pair`` among them, and those two deliver the
-same events as ``emit`` and ``emit_pair``.  ``repro_torch.core`` exports
+same events as ``emit`` and ``emit_pair``.  ``repro_torch.stochastic``
+exports the reference's ``__all__`` and ``repro_torch.analysis`` its
+``autotune``, ``roofline`` and ``op_census`` (the census in ``hlo``'s
+place).  ``repro_torch.core`` exports
 every public name of ``repro.core`` but those of the parts still queued.
 """
 import ast
@@ -79,7 +82,13 @@ def test_port_has_modules():
                    "repro_torch/runtime/solve_service.py",
                    "repro_torch/runtime/serving.py",
                    "repro_torch/runtime/train_loop.py",
-                   "repro_torch/launch/serve.py"):
+                   "repro_torch/launch/serve.py",
+                   "repro_torch/stochastic/sampler.py",
+                   "repro_torch/stochastic/solvers.py",
+                   "repro_torch/stochastic/host.py",
+                   "repro_torch/analysis/roofline.py",
+                   "repro_torch/analysis/autotune.py",
+                   "repro_torch/analysis/op_census.py"):
         assert module in names
     assert (REPO / "chip_smoke.py").exists()
     for name in ("flash_attention", "rwkv_wkv"):
@@ -132,6 +141,20 @@ def test_jit_events_deliver_what_emit_delivers():
         assert values.keys() == values_w.keys()
         for key in values:
             np.testing.assert_array_equal(values[key], values_w[key])
+
+
+def test_stochastic_and_analysis_export_the_reference_names():
+    import repro.stochastic as reference
+    import repro_torch
+    import repro_torch.analysis as analysis
+    import repro_torch.stochastic as port
+    assert port.__all__ == reference.__all__
+    for name in reference.__all__:
+        assert hasattr(port, name), name
+    assert "stochastic" in repro_torch.__all__
+    assert "analysis" in repro_torch.__all__
+    for name in ("autotune", "op_census", "roofline"):
+        assert name in analysis.__all__ and hasattr(analysis, name)
 
 
 def test_core_exports_what_the_reference_core_exports():
