@@ -11,7 +11,9 @@ batches of hypergradients under ``torch.func.vmap``, the service's
 approximate arm; phases 18 and 20 run the DEQ layer and the other solvers
 and operators, which launch no kernel; phase 21 the stochastic inner
 solvers at data scale; phase 22 tunes the kernel's layout through the
-autotune cache, phase 23 takes the operation census of a prefill step); the paper's §4.1
+autotune cache, phase 23 takes the operation census of a prefill step;
+phase 24 runs the distributed layer on a mesh of one rank: the paper's
+§4.4 molecular-dynamics sensitivity and a sharded hypergradient); the paper's §4.1
 multiclass-SVM hyper-parameter optimisation — ``solve_bilevel`` over a
 ``ProjectedGradient`` inner solver — through the hand-written
 simplex-projection kernel (phases 9-11); and LM serving of ``qwen1.5-4b``
@@ -235,8 +237,29 @@ prints one line:
      products left out is the control), the 40 attention launches as
      custom calls, and ``roofline.analyze``'s compute and memory terms and
      the step's MFU at phase 16's measured prefill time.
+ 24. the distributed layer on a mesh of one rank (``launch.mesh.
+     make_solve_mesh`` starts a single-rank NCCL group, destroyed at the
+     phase's end): (a) the paper's §4.4 experiment in the port
+     (``repro_torch.launch.md_sensitivity``: K = 32 particles from
+     ``--seed``, FIRE 400 steps, float64), ∂x*/∂θ by ``root_jvp``
+     (bicgstab), by ``GradientDescent.run(mode="jvp")`` under
+     ``torch.func.jvp`` and by the B = 8 diameter sweep on a
+     ``ShardedOperator`` on the mesh ``auto_mesh_size`` picks through
+     ``linear_solve.solve(method="auto")`` — the example's own limits:
+     route 2 within 1e-4 of route 1, route 3 at θ₀ within 1e-6, the sweep
+     on a mesh of one by ``sharded_dense_gmres``; the force residual and
+     the L1 norm printed; (b) the gradient in θ of Σx*² over phase 4's 64
+     ridge problems (float32, ``solve="pallas_cg"``, tol 1e-6) under
+     ``SolveSharding(mesh, P("data", None), batch_ndim=1)`` (the batched
+     residual, the backward routed to ``sharded_cg``, no kernel launch)
+     and without it (``vmap(grad)``, one C8 launch): within 2e-3 of each
+     other (the single gradient shifted by one instance is the control)
+     and 1e-3 of the float64 closed form; each one's median time of 3 and
+     the ratio sharded/single, the cost of mesh placement on one card;
+     (c) in a fresh tuning cache, ``autotune.measure_solver("sharded_cg",
+     64, 512, mesh_size=1)`` and ``auto_mesh_size(64, 512)`` (1).
 
-Phases 17-23 each print their duration on a line of their own.  The run
+Phases 17-24 each print their duration on a line of their own.  The run
 fails at once if ``REPRO_AUTOTUNE_CACHE`` is set: phases 3-20 hold every
 batched-CG launch to the kernel's rule, which only a cold tuning cache
 gives (``solve_pallas_cg`` takes ``layout="auto"``).
@@ -244,8 +267,9 @@ gives (``solve_pallas_cg`` takes ``layout="auto"``).
 Kernel launches are counted by each kernel's ``ops.LAUNCHES`` (and, for
 batched_cg, ``ops.LAUNCHES_BY_LAYOUT``; for flash attention,
 ``ops.LAUNCHES_BY_ROUTE``), set to 0 just before each main-path phase
-(4-7, 17's batched derivatives, 19's exact buckets and 22's solves for
-batched_cg — not 22's sweep, whose launches it prints apart —
+(4-7, 17's batched derivatives, 19's exact buckets, 22's solves and
+24's single-device gradient for batched_cg — not 22's sweep, whose
+launches it prints apart —
 phase 6's forward and backward each on their own, 10 for simplex_proj,
 each kernel prefill of 14 for flash_attention and of 15 for rwkv_wkv; the JSON line reports the bfloat16 one, for flash
 attention its tc launches, and adds the CUDA-core kernel's time as
@@ -381,6 +405,9 @@ LAYOUT_SWEEP = [(64, 512, "float32"), (64, 128, "float32"),
                 (64, 512, "float64")]
 SWEEP_TIMING = dict(reps=20, replays=5)
 CENSUS_RTOL = 1e-2                 # phase 23: census against the reckoning
+# phase 24 (limits and their readings: PERF.md)
+DIST = dict(B=64, d=512, m=1024, reps=3)   # phase 4's ridge problems
+SHARD_RTOL = 2 * CLOSED_RTOL       # phase 24 (b): sharded against single
 
 
 def fail(msg: str) -> None:
@@ -2421,6 +2448,156 @@ def phase_census(device, seed, arch, prefill_s):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the distributed layer on a mesh of one rank
+# ---------------------------------------------------------------------------
+
+def dispatched(fn):
+    """``fn()`` with observability on: the routing events' (requested,
+    solver, mesh_size) of its solves, the largest per-instance iteration
+    count its solves report (-1: untracked, the kernel), and its result."""
+    from repro_torch.observability import events
+    seen, iters = [], [-1]
+
+    def note(ev):
+        if ev.kind == "dispatch":
+            seen.append((ev.tags.get("requested"), ev.tags["solver"],
+                         ev.tags.get("mesh_size")))
+        elif ev.kind == "solve":
+            iters.append(int(ev.values["iterations"].max()))
+
+    with events.observe(True):
+        unsub = events.subscribe(note)
+        try:
+            out = fn()
+        finally:
+            unsub()
+    return seen, max(iters), out
+
+
+def median_s(device, fn, reps):
+    """The median seconds of ``reps`` calls (after one warm-up call)."""
+    fn()
+    return sorted(timed(device, fn)[1] for _ in range(reps))[reps // 2]
+
+
+def phase_distributed(device, gen, B, d, m, reps):
+    """Phase 24: the paper's §4.4 MD sensitivity in the port's three routes
+    (float64), the sharded ridge hypergradient at phase 4's width against
+    the kernel's, and the sharded rows of the autotune cache — on a mesh of
+    one rank of a single-rank NCCL group, destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    import torch.func
+    from repro_torch.analysis import autotune
+    from repro_torch.core import custom_root, implicit_diff
+    from repro_torch.core import operators as ops
+    from repro_torch.core.diff_api import ImplicitDiffSpec
+    from repro_torch.distributed import P, SolveSharding
+    from repro_torch.launch import md_sensitivity as md
+    from repro_torch.launch.mesh import auto_mesh_size, make_solve_mesh
+
+    check(not dist.is_initialized(), "phase 24: a process group is already "
+          "running")
+    res = {}
+    try:
+        mesh = make_solve_mesh(device=device)
+        res["backend"] = dist.get_backend()
+        res["mesh"] = (tuple(mesh.mesh_dim_names), mesh.size())
+
+        # (a) §4.4: FIRE, then three routes to ∂x*/∂θ, float64
+        x0 = torch.rand(md.K_PARTICLES, 2, generator=gen, device=device,
+                        dtype=torch.float64)
+        res["md"] = md.run(x0, device=device)
+
+        # (b) 64 ridge hypergradients: sharded against the kernel
+        f32 = torch.float32
+        _, _, X, theta = ridge_batch(gen, B, d, m, f32, device)
+        y = torch.randn(B, m, generator=gen, device=device, dtype=f32)
+        eye = torch.eye(d, device=device, dtype=f32)
+
+        def F_batch(x, X, y, t):
+            r = torch.einsum("bmd,bd->bm", X, x) - y
+            return torch.einsum("bmd,bm->bd", X, r) / m + t[:, None] * x
+
+        def solve_batch(init, X, y, t):
+            A = X.transpose(1, 2) @ X / m + t[:, None, None] * eye
+            return torch.linalg.solve(
+                A, (X.transpose(1, 2) @ y[..., None])[..., 0] / m)
+
+        sharding = SolveSharding(mesh, P("data", None), batch_ndim=1,
+                                 theta_specs=(P("data", None, None),
+                                              P("data", None), P("data")))
+        sharded = implicit_diff(ImplicitDiffSpec(
+            optimality_fun=F_batch, solve="pallas_cg", tol=HYPERGRAD_TOL,
+            sharding=sharding))(solve_batch)
+
+        def grad_sharded():
+            return torch.func.grad(
+                lambda t: (sharded(None, X, y, t) ** 2).sum())(theta)
+
+        def F(x, X, y, t):
+            return X.T @ (X @ x - y) / m + t * x
+
+        @custom_root(F, solve="pallas_cg", tol=HYPERGRAD_TOL)
+        def ridge(init, X, y, t):
+            return torch.linalg.solve(X.T @ X / m + t * eye, X.T @ y / m)
+
+        def grad_single():
+            return torch.func.vmap(torch.func.grad(
+                lambda X, y, t: (ridge(None, X, y, t) ** 2).sum(),
+                argnums=2))(X, y, theta)
+
+        Xd = X.double()
+        A = Xd.transpose(1, 2) @ Xd / m + theta.double()[:, None, None] * \
+            torch.eye(d, device=device, dtype=torch.float64)
+        xs = torch.linalg.solve(A, (Xd.transpose(1, 2) @ y.double()[..., None])
+                                [..., 0] / m)
+        want = 2 * (xs * -torch.linalg.solve(A, xs)).sum(-1)
+        del A, Xd
+        xs_f32 = solve_batch(None, X, y, theta)
+        cg_counts(reset=True)
+        res["routes_sharded"], res["sharded_iters"], g_sh = \
+            dispatched(grad_sharded)
+        res["sharded_launches"] = cg_counts()[0]
+        cg_counts(reset=True)
+        res["routes_single"], _, g_si = dispatched(grad_single)
+        res["single_launches"], res["single_layout"] = cg_counts()
+        res["sh_vs_single"] = float(rel_rows(g_sh, g_si).max())
+        res["sh_vs_closed"] = float(rel_rows(g_sh, want).max())
+        res["si_vs_closed"] = float(rel_rows(g_si, want).max())
+        res["control"] = float(rel_rows(g_sh, g_si.roll(1, 0)).max())
+        res["finite"] = bool(torch.isfinite(g_sh).all())
+        res["sharded_s"] = median_s(device, grad_sharded, reps)
+        res["single_s"] = median_s(device, grad_single, reps)
+        # where the sharded gradient's time goes: a matvec of its CG loop
+        # (a JVP of the batched residual) against the residual itself, and
+        # the device's time in each gradient
+        J = ops.JacobianOperator(lambda x: F_batch(x, X, y, theta), xs_f32,
+                                 negate=True, symmetric=True, batch_ndim=1)
+        v = torch.randn(B, d, generator=gen, device=device, dtype=f32)
+        res["matvec_ms"] = median_s(device, lambda: J.matvec(v), 5) * 1e3
+        res["F_ms"] = median_s(device, lambda: F_batch(v, X, y, theta),
+                               5) * 1e3
+        res["device_ms"] = {name: profiled_device_ms(fn, 1) for name, fn in
+                            (("sharded", grad_sharded),
+                             ("single", grad_single))} \
+            if device.type == "cuda" else None
+
+        # (c) the sharded rows of the autotune cache
+        cache = autotune.TuningCache()
+        with autotune.use_cache(cache):
+            rec = autotune.measure_solver("sharded_cg", B, d, mesh_size=1,
+                                          device=device)
+            res["measured_ms"] = rec.seconds * 1e3
+            res["measured_key"] = [k for k, _ in cache.items()]
+            res["auto_mesh"] = auto_mesh_size(B, d)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return res
+
+
 def zeroed(op):
     """A replacement of a kernel op whose attention / WKV output is 0."""
     def fn(*args, **kw):
@@ -3013,10 +3190,79 @@ def main(argv=None) -> None:
         f"the step's mfu is {s23['mfu']:.4f}")
     say("23 time", f"{time.perf_counter() - t_phase:.1f} s")
 
+    # 24. the distributed layer, mesh size 1, NCCL
+    t_phase = time.perf_counter()
+    from repro_torch.launch import md_sensitivity as md
+    s24 = phase_distributed(device, gen, **DIST)
+    md24 = s24["md"]
+    check(s24["backend"] == "nccl" and s24["mesh"] == (("data",), 1),
+          f"phase 24: group {s24['backend']}, mesh {s24['mesh']}")
+    # the example's own limits: route 2, and route 3 at θ0, against route 1
+    check(md24["runtime_drift"] < md.JVP_LIMIT, f"phase 24 (a): runtime "
+          f"jvp {md24['runtime_drift']:.3e} from root_jvp (limit "
+          f"{md.JVP_LIMIT})")
+    check(md24["sweep_drift"] < md.SWEEP_LIMIT, f"phase 24 (a): sweep at "
+          f"θ0 {md24['sweep_drift']:.3e} from root_jvp (limit "
+          f"{md.SWEEP_LIMIT})")
+    check(md24["mesh_size"] == 1 and md24["sweep_solver"] ==
+          "sharded_dense_gmres", f"phase 24 (a): the sweep ran "
+          f"{md24['sweep_solver']} on a {md24['mesh_size']}-rank mesh")
+    check(all(math.isfinite(float(v.abs().sum())) for v in
+              (md24["dx"], md24["dx_runtime"], md24["dx_sweep"])),
+          "phase 24 (a): a sensitivity is not finite")
+    routed = {r[1] for r in s24["routes_sharded"]}
+    check(routed == {"sharded_cg"} and s24["sharded_launches"] == 0,
+          f"phase 24 (b): the sharded backward routed {s24['routes_sharded']}"
+          f" and launched the kernel {s24['sharded_launches']} times")
+    check({r[1] for r in s24["routes_single"]} == {"pallas_cg"} and
+          s24["single_launches"] == 1 and
+          s24["single_layout"] == {MAIN_LAYOUT: 1}, f"phase 24 (b): the "
+          f"single backward routed {s24['routes_single']}, launched "
+          f"{s24['single_launches']} {s24['single_layout']}")
+    check(s24["finite"] and s24["sh_vs_single"] <= SHARD_RTOL
+          < s24["control"], f"phase 24 (b): sharded against single "
+          f"{s24['sh_vs_single']:.3e} (limit {SHARD_RTOL}, control "
+          f"{s24['control']:.3e})")
+    check(max(s24["sh_vs_closed"], s24["si_vs_closed"]) <= CLOSED_RTOL,
+          f"phase 24 (b): against the float64 closed form sharded "
+          f"{s24['sh_vs_closed']:.3e}, single {s24['si_vs_closed']:.3e}")
+    check(s24["auto_mesh"] == 1 and [k.solver for k in s24["measured_key"]]
+          == ["sharded_cg"], f"phase 24 (c): auto_mesh_size "
+          f"{s24['auto_mesh']}, cache {s24['measured_key']}")
+    say("24 distributed", f"[{card}] group {s24['backend']}, mesh "
+        f"{s24['mesh']}; (a) §4.4 MD, K={md24['x_star'].shape[0]} float64: "
+        f"FIRE {md24['fire_s']:.3f} s, force residual "
+        f"{md24['residual']:.3e}; root_jvp bicgstab L1 ‖∂x*/∂θ‖ "
+        f"{float(md24['dx'].abs().sum()):.6f} in {md24['root_jvp_s']:.3f} s;"
+        f" GradientDescent.run(mode='jvp') polish {md24['polish_iterations']}"
+        f" steps, L1 {float(md24['dx_runtime'].abs().sum()):.6f}, max |Δ| "
+        f"{md24['runtime_drift']:.3e} (limit {md.JVP_LIMIT}) in "
+        f"{md24['runtime_jvp_s']:.3f} s; B=8 sweep on a "
+        f"{md24['mesh_size']}-rank mesh ({md24['sweep_solver']}) max |Δ| at "
+        f"θ0 {md24['sweep_drift']:.3e} (limit {md.SWEEP_LIMIT}) in "
+        f"{md24['sweep_s']:.3f} s; (b) {DIST['B']} ridge hypergradients "
+        f"d={DIST['d']} float32: sharded backward {s24['routes_sharded']} "
+        f"({s24['sharded_launches']} kernel launches, masked CG "
+        f"{s24['sharded_iters']} iterations at most) "
+        f"{s24['sharded_s'] * 1e3:.2f} ms, single {s24['routes_single']} "
+        f"({s24['single_launches']} {s24['single_layout']}) "
+        f"{s24['single_s'] * 1e3:.2f} ms, sharded/single at n=1 "
+        f"{s24['sharded_s'] / s24['single_s']:.3f}x (median of "
+        f"{DIST['reps']}; device time {s24['device_ms']} ms under "
+        f"torch.profiler; a JVP matvec of the sharded CG loop "
+        f"{s24['matvec_ms']:.3f} ms against F itself {s24['F_ms']:.3f} ms);"
+        f" rel sharded vs single {s24['sh_vs_single']:.2e} "
+        f"(limit {SHARD_RTOL}, control {s24['control']:.2e}), vs float64 "
+        f"closed form {s24['sh_vs_closed']:.2e} / {s24['si_vs_closed']:.2e};"
+        f" (c) measure_solver sharded_cg ({DIST['B']}, {DIST['d']}) float32 "
+        f"mesh 1: {s24['measured_ms']:.3f} ms; auto_mesh_size "
+        f"{s24['auto_mesh']}")
+    say("24 time", f"{time.perf_counter() - t_phase:.1f} s")
+
     launches = s4["launches"] + s5["launches"] + s6["fwd"] + s6["bwd"] \
         + s7["launches"] + s17["grad"]["launches"] \
         + s17["jvp"]["launches"] + run17["launches"] + s19["launches"] \
-        + s22["launches"]
+        + s22["launches"] + s24["single_launches"]
     print(json.dumps({"kernels": [{
         "name": "batched_cg", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,

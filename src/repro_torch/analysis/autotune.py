@@ -20,8 +20,8 @@ roofline model where it has none:
     (``roofline.analyze_solve``).  Costs are only ever compared
     LIKE-FOR-LIKE: measured against measured, roofline against roofline.
   * decisions — ``should_shard`` and ``auto_mesh_size`` (the cost model
-    of the sharded solvers, which come with ROADMAP A.11: nothing in the
-    port calls them yet) and ``choose_layout``, the tuned layout of the
+    that gates ``linear_solve``'s routing to the sharded solvers and picks
+    ``launch.mesh.auto_mesh_size``'s extent) and ``choose_layout``, the tuned layout of the
     batched-CG kernel behind ``batched_cg(layout="auto")`` — the
     counterpart of the JAX package's ``choose_block_b`` (a TPU tile
     height): B.1's cluster size, measured per ``(backend, B, d, dtype)``
@@ -315,31 +315,49 @@ def measure_solver(solver: str, B: int, d: int, *, dtype: str = "float32",
     record the median into the cache.
 
     The system is a ``DenseOperator`` on ``device`` (``None``: ``cuda``),
-    solved through ``linear_solve.solve(method=solver)``; the median of
-    ``measure`` (wall clock, synchronized) captures steady-state
-    execution, host dispatch included, with the first call in the warmup.
-    The sharded solvers (``sharded_*``) come with ROADMAP A.11 and raise
-    ``NotImplementedError``.
+    solved through ``linear_solve.solve(method=solver)``.  ``sharded_*``
+    solvers run on a fresh 1-D mesh of ``mesh_size`` ranks
+    (``launch.mesh.make_solve_mesh``) with the batch axis sharded (the
+    production hypergradient layout); every rank holds the whole synthetic
+    batch and solves its slice.  The median of ``measure`` (wall clock,
+    synchronized) captures steady-state execution, host dispatch and the
+    sharded path's placement overhead included, with the first call in the
+    warmup.  A single-rank process group that the mesh had to start is
+    destroyed before returning; a group the caller runs stays.
     """
     from repro_torch.core import linear_solve as ls
     from repro_torch.core import operators as ops
 
-    if solver.startswith("sharded_"):
-        raise NotImplementedError(
-            f"{solver!r}: the sharded solvers are not ported yet (ROADMAP "
-            "queue A.11)")
-    if mesh_size != 1:
-        raise ValueError(f"single-device solver {solver!r} cannot be "
-                         f"measured at mesh_size={mesh_size}")
     cache = cache if cache is not None else default_cache()
     dev = _device.resolve(device)
     A_np, b_np = _synthetic_spd(B, d, dtype, seed)
     A = torch.as_tensor(A_np, device=dev)
     b = torch.as_tensor(b_np, device=dev)
     op = ops.DenseOperator(A, positive_definite=True)
-    seconds = measure(lambda: ls.solve(op, b, method=solver, tol=tol,
-                                       maxiter=maxiter),
-                      warmup=warmup, iters=iters)
+    if not solver.startswith("sharded_"):
+        if mesh_size != 1:
+            raise ValueError(f"single-device solver {solver!r} cannot be "
+                             f"measured at mesh_size={mesh_size}")
+        seconds = measure(lambda: ls.solve(op, b, method=solver, tol=tol,
+                                           maxiter=maxiter),
+                          warmup=warmup, iters=iters)
+    else:
+        import torch.distributed as dist
+
+        from repro_torch.distributed.sharded_operators import ShardedOperator
+        from repro_torch.distributed.spec import P
+        from repro_torch.launch import mesh as mesh_mod
+        started_here = not dist.is_initialized()
+        try:
+            mesh = mesh_mod.make_solve_mesh(devices=int(mesh_size),
+                                            device=dev)
+            sop = ShardedOperator(op, mesh, P("data", None))
+            seconds = measure(lambda: ls.solve(sop, b, method=solver,
+                                               tol=tol, maxiter=maxiter),
+                              warmup=warmup, iters=iters)
+        finally:
+            if started_here:
+                mesh_mod._release_own_group()
     key = TuningKey(dev.type, solver, int(B), int(d), dtype,
                     int(mesh_size), normalize_precond(precond))
     return cache.put(key, seconds, source="measured", samples=iters)
@@ -524,8 +542,7 @@ def should_shard(B: int, d: int, *, mesh_size: int,
     the cache holds BOTH sides, otherwise roofline-vs-roofline.  A cold
     cache therefore keeps structural behavior (the hardware model has
     batch sharding dividing per-device work with zero communication)
-    until measurements prove a regime loses.  The pure cost model: the
-    sharded solvers it gates come with ROADMAP A.11.
+    until measurements prove a regime loses.
     """
     counter = obs_metrics.global_registry().counter
 

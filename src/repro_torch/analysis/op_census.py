@@ -22,8 +22,8 @@ Cost model (per aten operation, the shapes of this call):
     uninitialized allocations move no data and count nothing; a stride-0
     (broadcast) axis counts once.
   * collectives: the operand bytes of the ``c10d`` functional
-    collectives (all-reduce, all-gather, reduce-scatter, all-to-all); the
-    port issues none before the distributed slice (ROADMAP A.11).
+    collectives (all-reduce, all-gather, reduce-scatter, all-to-all), the
+    ops behind the distributed layer's reductions and gathers.
   * a hand-written kernel's launch goes through ``ctypes`` and is
     invisible to the dispatcher.  Each kernel's ``ops.py`` calls
     :func:`record_custom_call` at its launch: its operands' and outputs'

@@ -14,8 +14,8 @@ useful-compute ratio MODEL_FLOPS / FLOPs.
 The constants are the values of NVIDIA's H100 SXM5 data sheet (dense
 rates, no sparsity, at the full 700 W power limit): 989 TFLOP/s of bf16
 on the tensor cores (the peak ``mfu`` divides by), 3.35 TB/s of HBM3, and
-for ``ICI_BW`` one direction of NVLink 4 (450 GB/s), which no solve of
-the port uses until the distributed slice (ROADMAP A.11).
+for ``ICI_BW`` one direction of NVLink 4 (450 GB/s), the link the
+sharded solvers' reductions would cross between cards.
 ``analyze_solve`` divides its compute term by the peak of the solve's own
 type on the CUDA cores (67 TFLOP/s float32, 34 TFLOP/s float64; the
 reference divides every solve by its bf16 peak); a CG iteration at
@@ -37,8 +37,8 @@ SOLVE_PEAK_FLOPS = {4: 67e12, 8: 34e12}
 # A psum over instance-sharding axes is latency-bound at solver scales
 # (two scalar reductions per CG iteration), so it is modeled as a fixed
 # per-iteration latency rather than link bytes.  The reference's model
-# constant; not measured on this card (the sharded solvers come with
-# ROADMAP A.11).  Pure *batch* sharding has no cross-device communication
+# constant; not measured on this card (one card has no cross-card
+# reduction to time).  Pure *batch* sharding has no cross-device communication
 # at all; its real-world overhead is host-side dispatch, which the
 # roofline deliberately omits — measured cache entries capture it.
 PSUM_LATENCY_S = 1e-6

@@ -112,6 +112,14 @@ def ravel_batched(tree) -> Tuple[torch.Tensor, Callable]:
     return flat, unravel
 
 
+def _has_dtensor(*trees) -> bool:
+    """Whether a leaf of ``trees`` is a ``DTensor`` (a sharded run).
+    ``torch.distributed.tensor`` is imported here, not at module load."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(leaf, DTensor) for tree in trees
+               for leaf in tree_leaves(tree))
+
+
 def is_batched(*trees) -> bool:
     """Whether a tensor leaf of ``trees`` carries a ``torch.func.vmap``
     batch axis, at any depth of functorch wrapping (a ``torch.func.grad``

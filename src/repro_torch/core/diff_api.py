@@ -50,7 +50,16 @@ and ``jacfwd`` each run one solve.
 
 Mode selection (``mode=``): ``"auto"`` (both), ``"vjp"`` (reverse only;
 forward mode raises), ``"jvp"`` (forward only; reverse mode raises).
-Mesh placement (``sharding``) is not ported yet (ROADMAP queue A.11).
+
+Mesh placement (``sharding``, a ``repro_torch.distributed.
+sharded_operators.SolveSharding``): ``A`` becomes a ``ShardedOperator``
+whose operands are x* and θ, placed by the solution's and θ's specs; the
+classic solver names upgrade to the ``sharded_*`` solvers, and the θ
+products (``uᵀB``, ``Bθ̇``) run on the local shards too.  Tensors cross
+as ``DTensor``s (nothing gathered) or as plain tensors every rank holds
+alike (global values).  Forward mode takes plain tensors: ``torch.func.
+jvp`` does not trace DTensors.  A sharded solve under ``torch.func.vmap``
+raises ``NotImplementedError``.
 
 Conventions: the wrapped solver has signature ``solver(init, *theta)`` and
 returns ``x*`` (or ``(x*, aux)`` with ``has_aux=True``).  ``F``/``T`` take
@@ -133,7 +142,15 @@ class ImplicitDiffSpec:
     the full ``A = -∂₁F(x*, θ)`` including the negation; ``symmetric`` is
     ``True`` when the routed solver is symmetric-only, else ``None``.
     ``B = ∂₂F`` stays exact (the stochastic layer's sampled Hessian is
-    the use).
+    the use).  Mutually exclusive with ``sharding``.
+
+    ``sharding`` (a ``repro_torch.distributed.sharded_operators.
+    SolveSharding``) places the implicit system on a mesh: the
+    ``JacobianOperator`` inherits the primal solution's mesh and
+    PartitionSpecs, the classic solver names upgrade to their distributed
+    variants (``cg`` → ``sharded_cg``, …), and both modes' linear solves
+    run on the local shards, with nothing gathered when the tensors are
+    DTensors.
     """
     optimality_fun: Optional[Callable] = None
     fixed_point_fun: Optional[Callable] = None
@@ -144,12 +161,17 @@ class ImplicitDiffSpec:
     precond: Any = None
     has_aux: bool = False
     nondiff_argnums: Tuple[int, ...] = ()
+    sharding: Any = None
     backward: str = "exact"
     backward_iters: int = 8
     error_estimate: bool = True
     system_operator: Optional[Callable] = None
 
     def __post_init__(self):
+        if self.system_operator is not None and self.sharding is not None:
+            raise ValueError(
+                "system_operator and sharding are mutually exclusive: a "
+                "factory-built system has no mesh placement contract")
         if self.optimality_fun is not None and \
                 self.fixed_point_fun is not None:
             raise ValueError("provide at most one of optimality_fun / "
@@ -202,16 +224,31 @@ class ImplicitDiffSpec:
 # ---------------------------------------------------------------------------
 
 def _implicit_system_operator(F: Callable, x_star, theta_args: tuple,
-                              solve, system_operator=None
+                              solve, sharding=None, system_operator=None
                               ) -> ops.LinearOperator:
     """``A = -∂₁F(x*, θ)`` as a ``JacobianOperator``, certified symmetric
-    when the routed solver is symmetric-only (``cg``/``pallas_cg``); or
-    the operator the ``system_operator`` factory builds."""
+    when the routed solver is symmetric-only (``cg``/``pallas_cg``/
+    ``sharded_cg``); or the operator the ``system_operator`` factory
+    builds.  With ``sharding`` set, the operator is placed on the mesh:
+    x* and every θ argument become its operands (specs from the solution /
+    ``theta_specs``), so its matvec is a per-shard JVP and the registry
+    dispatches the distributed solvers."""
     certified = solve != "auto" and ls.solver_is_symmetric(solve)
     sym = True if certified else None
     if system_operator is None:
-        return ops.JacobianOperator(lambda x: F(x, *theta_args), x_star,
-                                    negate=True, symmetric=sym)
+        if sharding is None:
+            return ops.JacobianOperator(lambda x: F(x, *theta_args), x_star,
+                                        negate=True, symmetric=sym)
+
+        def jacobian_factory(x_local, *theta_local):
+            return ops.JacobianOperator(
+                lambda x: F(x, *theta_local), x_local, negate=True,
+                symmetric=sym, batch_ndim=sharding.batch_ndim)
+
+        return sharding.wrap(jacobian_factory, (x_star, *theta_args))
+    if sharding is not None:
+        raise ValueError("system_operator and sharding are mutually "
+                         "exclusive")
     A = system_operator(x_star, theta_args, symmetric=sym)
     if not isinstance(A, ops.LinearOperator):
         raise TypeError("system_operator factory must return a "
@@ -221,6 +258,16 @@ def _implicit_system_operator(F: Callable, x_star, theta_args: tuple,
             f"routed solver {solve!r} is symmetric-only but the "
             "system_operator factory declared symmetric=False")
     return A
+
+
+def _check_approx_routing(precond, sharding):
+    """Reject routing combos the approximate backward modes can't honor."""
+    if sharding is not None and isinstance(precond, str):
+        raise ValueError(
+            "approximate backward modes with a sharded system do not "
+            "support named preconditioners (deriving the global diagonal "
+            "outside the shards would capture replicated state); pass a "
+            "callable M⁻¹ or precond=None")
 
 
 def _backward_apply(A, rhs, *, solve, tol, maxiter, ridge, precond,
@@ -292,9 +339,13 @@ class _System:
 
     def __init__(self, F, x_star, theta_args, rhs, *, transpose, solve,
                  tol, maxiter, ridge, precond, backward, backward_iters,
-                 error_estimate, return_info, system_operator, direction):
+                 error_estimate, return_info, system_operator, direction,
+                 sharding=None):
         self.F, self.transpose, self.solve = F, transpose, solve
         self.system_operator, self.direction = system_operator, direction
+        self.sharding = sharding
+        # a mesh-placed system carries its batch axis on every leaf
+        self.batch_ndim = 0 if sharding is None else sharding.batch_ndim
         self.kw = dict(solve=solve, tol=tol, maxiter=maxiter, ridge=ridge,
                        precond=precond, backward=backward,
                        backward_iters=backward_iters,
@@ -306,7 +357,7 @@ class _System:
     def operator(self, x_star, theta) -> ops.LinearOperator:
         """The matrix of the system (A, or Aᵀ) at one instance."""
         A = _implicit_system_operator(self.F, x_star, theta, self.solve,
-                                      self.system_operator)
+                                      self.sharding, self.system_operator)
         return A.T if self.transpose else A
 
     def apply(self, M, rhs, batch_ndim: int) -> tuple:
@@ -399,7 +450,8 @@ class _SystemSolve(torch.autograd.Function):
     @staticmethod
     def forward(system, *tensors):
         x_star, theta, rhs = system.flat.trees(tensors)
-        return system.apply(system.operator(x_star, theta), rhs, 0)
+        return system.apply(system.operator(x_star, theta), rhs,
+                            system.batch_ndim)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -414,6 +466,12 @@ class _SystemSolve(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, system, *tensors):
+        if system.sharding is not None:
+            raise NotImplementedError(
+                "torch.func.vmap over a sharded implicit solve is not "
+                "supported: its collectives and host-read loops cannot take "
+                "vmap's batched tensors; put the batch on the mesh's batch "
+                "axis (SolveSharding(..., batch_ndim=1)) instead")
         tensors, dims = batch_first(tensors, in_dims[1:])
         x_star, theta, rhs = system.flat.trees(tensors)
         x_dims, th_dims, rhs_dims = system.flat.dims(dims)
@@ -451,9 +509,15 @@ def _of_diff_leaves(F: Callable, x_star, theta_args: tuple):
     return F_of, [leaves[i] for i in slots], slots, leaves, spec
 
 
-def _theta_vjp(F: Callable, x_star, theta_args: tuple, u) -> tuple:
+def _theta_vjp(F: Callable, x_star, theta_args: tuple, u,
+               sharding=None) -> tuple:
     """``uᵀ ∂₂F`` per θ argument: one ``torch.func.vjp`` in θ's
-    floating-point tensor leaves; any other leaf gets ``None``."""
+    floating-point tensor leaves; any other leaf gets ``None``.  With
+    ``sharding``, on the local shards (``SolveSharding.theta_vjp``)."""
+    if sharding is not None:
+        return tuple(sharding.theta_vjp(
+            lambda x, th, v: _theta_vjp(F, x, th, v), x_star,
+            tuple(theta_args), u))
     F_of, primals, slots, leaves, spec = _of_diff_leaves(F, x_star,
                                                          theta_args)
     _, vjp_fun = torch.func.vjp(F_of, *primals)
@@ -463,11 +527,24 @@ def _theta_vjp(F: Callable, x_star, theta_args: tuple, u) -> tuple:
     return tuple(tree_unflatten(grads, spec))
 
 
+def _theta_jvp(F: Callable, x_star, theta_args: tuple, tangents: tuple,
+               sharding=None):
+    """``∂₂F θ̇``: one ``torch.func.jvp`` in θ; with ``sharding``, on the
+    local shards (``SolveSharding.theta_jvp``)."""
+    if sharding is not None:
+        return sharding.theta_jvp(
+            lambda x, th, t: _theta_jvp(F, x, th, t), x_star,
+            tuple(theta_args), tuple(tangents))
+    return torch.func.jvp(lambda *targs: canonical(F(x_star, *targs)),
+                          tuple(theta_args), tuple(tangents))[1]
+
+
 def root_vjp(F: Callable, x_star, theta_args: tuple, cotangent,
              solve="normal_cg", tol: float = 1e-6, maxiter: int = 1000,
-             ridge: float = 0.0, precond=None, backward: str = "exact",
-             backward_iters: int = 8, error_estimate: bool = False,
-             return_info: bool = False, system_operator=None):
+             ridge: float = 0.0, precond=None, sharding=None,
+             backward: str = "exact", backward_iters: int = 8,
+             error_estimate: bool = False, return_info: bool = False,
+             system_operator=None):
     """VJP through the implicitly-defined root: returns vᵀ ∂x*(θ) per θ arg.
 
     Solve Aᵀ u = v  (A = -∂₁F),  then  vᵀJ = uᵀB  (B = ∂₂F): one linear
@@ -476,38 +553,44 @@ def root_vjp(F: Callable, x_star, theta_args: tuple, cotangent,
     ``return_info=True`` returns ``(grads, SolveInfo)``; with
     ``error_estimate=True`` it carries ``hypergrad_error_estimate =
     ‖v − Aᵀu‖/‖v‖``.  Under ``torch.func.vmap`` the batch is ONE solve.
+    ``sharding`` places the system on a mesh (the ``sharded_*`` solvers).
     """
+    if backward != "exact":
+        _check_approx_routing(precond, sharding)
     x_star = canonical(x_star)
     u, info = _solve_system(
         F, x_star, theta_args, canonical(cotangent), transpose=True,
         solve=solve, tol=tol, maxiter=maxiter, ridge=ridge, precond=precond,
         backward=backward, backward_iters=backward_iters,
         error_estimate=error_estimate, return_info=return_info,
-        system_operator=system_operator, direction="vjp")
-    return ls._maybe_info(_theta_vjp(F, x_star, theta_args, u), info,
-                          return_info)
+        system_operator=system_operator, direction="vjp", sharding=sharding)
+    return ls._maybe_info(_theta_vjp(F, x_star, theta_args, u, sharding),
+                          info, return_info)
 
 
 def root_jvp(F: Callable, x_star, theta_args: tuple, tangents: tuple,
              solve="normal_cg", tol: float = 1e-6, maxiter: int = 1000,
-             ridge: float = 0.0, precond=None, backward: str = "exact",
-             backward_iters: int = 8, error_estimate: bool = False,
-             return_info: bool = False, system_operator=None):
+             ridge: float = 0.0, precond=None, sharding=None,
+             backward: str = "exact", backward_iters: int = 8,
+             error_estimate: bool = False, return_info: bool = False,
+             system_operator=None):
     """JVP through the implicitly-defined root: J · v.
 
     Solve A (Jv) = B v  with  Bv = ∂₂F · v  computed by one JVP of F in θ.
     ``backward`` / ``backward_iters`` / ``error_estimate`` /
-    ``return_info`` mirror ``root_vjp`` on the tangent system.
+    ``return_info`` / ``sharding`` mirror ``root_vjp`` on the tangent
+    system.
     """
+    if backward != "exact":
+        _check_approx_routing(precond, sharding)
     x_star = canonical(x_star)
-    _, Bv = torch.func.jvp(lambda *targs: canonical(F(x_star, *targs)),
-                           tuple(theta_args), tuple(tangents))
+    Bv = _theta_jvp(F, x_star, theta_args, tangents, sharding)
     u, info = _solve_system(
         F, x_star, theta_args, Bv, transpose=False, solve=solve, tol=tol,
         maxiter=maxiter, ridge=ridge, precond=precond, backward=backward,
         backward_iters=backward_iters, error_estimate=error_estimate,
         return_info=return_info, system_operator=system_operator,
-        direction="jvp")
+        direction="jvp", sharding=sharding)
     return ls._maybe_info(u, info, return_info)
 
 
@@ -541,6 +624,10 @@ class _Call:
         self.n_init = len(self.init.tensors)
         self.tensors = self.init.tensors + self.args.tensors
         self.x = self.aux = None
+        # the placement of the system on θ's tensors, the residual's
+        # arguments (``residual()``): one spec per tensor
+        self.sharding = None if spec.sharding is None else \
+            _per_tensor_sharding(spec.sharding, self.args)
 
     def rebuild(self, tensors):
         """``(init, theta)`` with the Function's inputs put back."""
@@ -557,6 +644,27 @@ class _Call:
         """F(x, *theta_tensors): the residual with θ rebuilt from tensors."""
         residual = self.spec.residual_fun
         return lambda x, *tensors: residual(x, *self.theta_with(tensors))
+
+
+def _per_tensor_sharding(sharding, args: Flat):
+    """``sharding`` with ``theta_specs`` laid out per tensor of ``args``
+    (the differentiable θ arguments, flattened as ``Flat`` does)."""
+    specs = []
+    for i, (leaves, tree_spec) in enumerate(args.parts):
+        arg = tree_unflatten(leaves, tree_spec)
+        spec_leaves = tree_leaves(sharding.theta_spec(i, arg))
+        specs += [s for leaf, s in zip(leaves, spec_leaves)
+                  if isinstance(leaf, torch.Tensor)]
+    return dataclasses.replace(sharding, theta_specs=tuple(specs))
+
+
+def _leaves_jvp(F: Callable, x_star, leaves: tuple, dots: tuple):
+    """``∂₂F θ̇`` in θ's floating-point tensor leaves (a ``None`` tangent
+    is zero)."""
+    F_of, primals, slots, _, _ = _of_diff_leaves(F, x_star, leaves)
+    return torch.func.jvp(F_of, tuple(primals), tuple(
+        torch.zeros_like(leaves[i]) if dots[i] is None else dots[i]
+        for i in slots))[1]
 
 
 class _ImplicitFunction(torch.autograd.Function):
@@ -614,9 +722,9 @@ class _ImplicitFunction(torch.autograd.Function):
             backward=spec.backward, backward_iters=spec.backward_iters,
             error_estimate=False, return_info=False,
             system_operator=spec.system_operator, direction="vjp",
-            **spec.routing_kwargs())
+            sharding=call.sharding, **spec.routing_kwargs())
         # integer θ tensors get None, as _theta_vjp gives any such leaf
-        grads = _theta_vjp(F, x_star, leaves, u)
+        grads = _theta_vjp(F, x_star, leaves, u, call.sharding)
         return (None,) * (1 + call.n_init) + tuple(grads)
 
     @staticmethod
@@ -628,18 +736,20 @@ class _ImplicitFunction(torch.autograd.Function):
                                "available — wrap with mode='auto' or 'jvp'")
         leaves, x_star = _ImplicitFunction._split(ctx)
         F = call.residual()
-        theta_dot = dots[call.n_init:]
-        F_of, primals, slots, _, _ = _of_diff_leaves(F, x_star, leaves)
-        _, Bv = torch.func.jvp(F_of, tuple(primals), tuple(
-            torch.zeros_like(leaves[i]) if theta_dot[i] is None
-            else theta_dot[i] for i in slots))
+        theta_dot = tuple(dots[call.n_init:])
+        if call.sharding is None:
+            Bv = _leaves_jvp(F, x_star, leaves, theta_dot)
+        else:
+            Bv = call.sharding.theta_jvp(
+                lambda x, th, t: _leaves_jvp(F, x, th, t), x_star, leaves,
+                theta_dot)
         spec = call.spec
         dx, _ = _solve_system(
             F, x_star, leaves, Bv, transpose=False, solve=spec.solve,
             backward=spec.backward, backward_iters=spec.backward_iters,
             error_estimate=False, return_info=False,
             system_operator=spec.system_operator, direction="jvp",
-            **spec.routing_kwargs())
+            sharding=call.sharding, **spec.routing_kwargs())
         return tuple(tree_flatten(dx)[0]) + (None,) * len(call.aux.tensors)
 
 
@@ -680,6 +790,8 @@ def implicit_diff(spec: Union[ImplicitDiffSpec, Callable, None] = None, *,
     if spec.is_routing_only:
         raise ValueError("routing-only ImplicitDiffSpec: set optimality_fun "
                          "or fixed_point_fun to wrap a solver")
+    if spec.backward != "exact":
+        _check_approx_routing(spec.precond, spec.sharding)
 
     def wrapper(solver: Callable) -> Callable:
         @functools.wraps(solver)

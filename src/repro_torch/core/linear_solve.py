@@ -27,8 +27,12 @@ Registry (``SolverSpec``; see ``available_solvers()``):
 
 The approximate backward modes (``one_step``, ``neumann_k``,
 ``jacobian_free``) apply a fixed polynomial in A through
-``approx_inverse_apply``.  The ``sharded_*`` solvers are not ported yet
-(ROADMAP queue A.11).
+``approx_inverse_apply``.  The distributed variants ``sharded_cg``,
+``sharded_normal_cg`` and ``sharded_dense_gmres`` live in
+``repro_torch.distributed.sharded_operators`` and need a
+``ShardedOperator``; ``"auto"`` routes a mesh-placed operator to them when
+the cost model (``analysis.autotune.should_shard``) approves its mesh
+size, and the classic names upgrade to them (``_upgrade_for_sharded``).
 
 Batching: ``solve(matvec, b, batch_axes=0, ...)`` with a ``matvec`` that
 maps batched pytrees to batched pytrees, or a batch-aware operator
@@ -241,14 +245,19 @@ def _squeeze_info(info: SolveInfo) -> SolveInfo:
 
 def solve_cg(matvec: Callable, b, *, init=None, tol: float = 1e-6,
              maxiter: int = 1000, ridge: float = 0.0, precond=None,
-             return_info: bool = False, batch_ndim: int = 0):
+             return_info: bool = False, batch_ndim: int = 0, reduce=None):
     """(Preconditioned) conjugate gradient for symmetric PSD operators.
 
     ``ridge`` adds λI damping; ``precond`` is ``None``, a callable
     v ↦ M⁻¹v, or ``"jacobi"``.  Converged instances freeze inside the one
-    loop for the batch.
+    loop for the batch.  ``reduce`` post-processes every dot-product/norm
+    reduction — the hook the sharded solvers use to sum partial sums
+    across ranks when the instance dims are split (``None``: plain local
+    sums).
     """
     nb = batch_ndim
+    red = (lambda s: s) if reduce is None else reduce
+    tdot = lambda u, w: red(_tree_dot(u, w, nb))
     b = canonical(b)
     matvec = _damped(matvec, ridge)
     M = _resolve_precond(precond, matvec, b, nb)
@@ -256,9 +265,9 @@ def solve_cg(matvec: Callable, b, *, init=None, tol: float = 1e-6,
     r = _tree_sub(b, matvec(x))
     z = M(r) if M is not None else r
     p = z
-    rz = _tree_dot(r, z, nb)
-    rr = _real(_tree_dot(r, r, nb))
-    b_norm = _tree_l2(b, nb)
+    rz = tdot(r, z)
+    rr = _real(tdot(r, r))
+    b_norm = torch.sqrt(torch.clamp_min(_real(tdot(b, b)), 0.0))
     atol2 = torch.clamp_min(tol * b_norm, 1e-30) ** 2
     done = rr <= atol2
     it = torch.zeros_like(b_norm, dtype=torch.int32)
@@ -267,13 +276,13 @@ def solve_cg(matvec: Callable, b, *, init=None, tol: float = 1e-6,
     k = 0
     while k < maxiter and not bool(torch.all(done)):
         ap = matvec(p)
-        denom = _tree_dot(p, ap, nb)
+        denom = tdot(p, ap)
         alpha = _where(denom == 0, 0.0, rz / _where(denom == 0, 1.0, denom))
         x1 = _tree_add(x, p, alpha, nb)
         r1 = _tree_add(r, ap, -alpha, nb)
-        rr1 = _real(_tree_dot(r1, r1, nb))
+        rr1 = _real(tdot(r1, r1))
         z1 = M(r1) if M is not None else r1
-        rz1 = _tree_dot(r1, z1, nb)
+        rz1 = tdot(r1, z1)
         beta = rz1 / _where(rz == 0, 1.0, rz)
         beta = _where(rz == 0, 0.0, beta)
         p1 = _tree_add(z1, p, beta, nb)
@@ -297,8 +306,10 @@ def solve_cg(matvec: Callable, b, *, init=None, tol: float = 1e-6,
 def solve_normal_cg(matvec: Callable, b, *, init=None, rmatvec=None,
                     tol: float = 1e-6, maxiter: int = 1000,
                     ridge: float = 0.0, precond=None,
-                    return_info: bool = False, batch_ndim: int = 0):
-    """Solve A x = b via CG on AᵀA x = Aᵀ b.  Works for any square A."""
+                    return_info: bool = False, batch_ndim: int = 0,
+                    reduce=None):
+    """Solve A x = b via CG on AᵀA x = Aᵀ b.  Works for any square A;
+    ``reduce`` as in ``solve_cg``."""
     example = _tree_zeros_like(canonical(b)) if init is None else init
     if rmatvec is None:
         rmatvec = make_rmatvec(matvec, example)
@@ -308,7 +319,8 @@ def solve_normal_cg(matvec: Callable, b, *, init=None, rmatvec=None,
 
     return solve_cg(normal_mv, rmatvec(b), init=init, tol=tol,
                     maxiter=maxiter, ridge=ridge, precond=precond,
-                    return_info=return_info, batch_ndim=batch_ndim)
+                    return_info=return_info, batch_ndim=batch_ndim,
+                    reduce=reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -790,7 +802,8 @@ _REGISTRY: dict = {}
 
 
 def _solve_event_tags(name, matvec, b, kw) -> dict:
-    """Static tags for a solve event: solver, B, d, dtype."""
+    """Static tags for a solve event: solver, B, d, dtype (+ mesh_size for
+    mesh-placed operators)."""
     nb = kw.get("batch_ndim")
     if nb is None and isinstance(matvec, LinearOperator):
         nb = matvec.batch_ndim
@@ -804,8 +817,11 @@ def _solve_event_tags(name, matvec, b, kw) -> dict:
         dtype = str(getattr(first, "dtype", "")).replace("torch.", "")
         if nb >= 1 and getattr(first, "ndim", 0) >= 1:
             B = int(first.shape[0])
-    return {"solver": str(name), "B": B, "d": total // max(B, 1),
+    tags = {"solver": str(name), "B": B, "d": total // max(B, 1),
             "dtype": dtype}
+    if getattr(matvec, "is_sharded", False):
+        tags["mesh_size"] = int(matvec.mesh.size())
+    return tags
 
 
 def _observed(name: str, fn: Callable) -> Callable:
@@ -901,19 +917,90 @@ def _check_operator_routing(spec: SolverSpec, A) -> None:
 def _resolve_auto(A, example, precond=None, init=None) -> str:
     """Pick a registry solver from operator structure + system size.
 
-    The dense small-system regime (d ≤ ``MAX_DENSE_DIM``) auto-materializes:
-    SPD operators take the ``pallas_cg`` kernel (``dense_gmres`` when a
-    preconditioner or a warm start is requested), everything else
-    ``dense_gmres``.  Above the crossover the solve stays matrix-free:
-    ``cg`` for declared-SPD operators, ``normal_cg`` otherwise.
-    ``example`` is one instance-shaped right-hand side.
+    Mesh-placed operators (``is_sharded``) route to the distributed
+    variants: ``sharded_cg`` for SPD operators, ``sharded_dense_gmres``
+    for batch-sharded small systems, ``sharded_normal_cg`` otherwise.
+    That routing is COST-GATED: it wins only when
+    ``analysis.autotune.should_shard`` predicts it beats the single-device
+    path at the operand's mesh size (measured tuning entries first, the
+    roofline model on a cold cache, a mesh of one always).  A refused
+    regime falls back to the MATRIX-FREE classic solver (``cg`` /
+    ``normal_cg``): the operator's matvec still runs per shard, but the
+    solve loop stays out of the sharded dispatch.
+
+    Single-device: the dense small-system regime (d ≤ ``MAX_DENSE_DIM``)
+    auto-materializes: SPD operators take the ``pallas_cg`` kernel
+    (``dense_gmres`` when a preconditioner or a warm start is requested),
+    everything else ``dense_gmres``.  Above the crossover the solve stays
+    matrix-free: ``cg`` for declared-SPD operators, ``normal_cg``
+    otherwise.  ``example`` is one instance-shaped right-hand side.
     """
     spd = A.positive_definite if isinstance(A, LinearOperator) else False
     d = _ravel1(example).shape[0]
+    if getattr(A, "is_sharded", False):
+        from repro_torch.analysis import autotune  # lazy: import cycle
+        Bn, _, dtype = autotune.operator_regime(A)
+        plain = precond is None and init is None
+        if autotune.should_shard(Bn, d, mesh_size=int(A.mesh.size()),
+                                 instance_sharded=A.instance_sharded,
+                                 spd=spd, dtype=dtype, precond=precond,
+                                 plain=plain):
+            if spd:
+                return "sharded_cg"
+            if d <= MAX_DENSE_DIM and not A.instance_sharded:
+                return "sharded_dense_gmres"
+            return "sharded_normal_cg"
+        return "cg" if spd else "normal_cg"
     if d <= MAX_DENSE_DIM:
         plain = precond is None and init is None
         return "pallas_cg" if spd and plain else "dense_gmres"
     return "cg" if spd else "normal_cg"
+
+
+# A mesh-placed operator upgrades the classic method names to their
+# distributed variants, so ``solve="cg"`` in an ``ImplicitDiffSpec`` runs
+# the sharded solve once placement is attached.  The single-device
+# MATERIALIZING solvers also upgrade (``pallas_cg`` → ``sharded_cg``,
+# ``lu`` → ``sharded_dense_gmres``): densifying a mesh-placed operator
+# outside its shards would gather the global (B, d, d) stack, which this
+# layer exists to avoid.  So on a mesh of one a mesh-placed SPD batch runs
+# the plain masked CG loop of ``sharded_cg``, not the batched-CG kernel.
+# Matrix-free general solvers (gmres/bicgstab/neumann) keep their names:
+# their matvecs already run per shard through the operator.
+_SHARDED_UPGRADE = {"cg": "sharded_cg", "normal_cg": "sharded_normal_cg",
+                    "dense_gmres": "sharded_dense_gmres",
+                    "pallas_cg": "sharded_cg",
+                    "lu": "sharded_dense_gmres"}
+
+
+def _upgrade_for_sharded(method, matvec, *, precond=None):
+    """Upgrade a classic solver name for a mesh-placed operand — when the
+    cost model approves the operand's mesh size.
+
+    Matrix-free upgrades (``cg``/``normal_cg``) are COST-GATED through
+    ``analysis.autotune.should_shard``: with measured evidence that this
+    (B, d, mesh) regime loses to the single-device path, the classic name
+    is kept.  MATERIALIZING names (``pallas_cg``/``lu``/``dense_gmres``)
+    always upgrade: their single-device forms would densify a mesh-placed
+    operator, so the sharded variant is a correctness matter, not a tuning
+    choice.  A mesh of one always upgrades.
+    """
+    if callable(method) or not getattr(matvec, "is_sharded", False):
+        return method
+    target = _SHARDED_UPGRADE.get(method)
+    if target is None:
+        return method
+    spec = _REGISTRY.get(method)
+    if spec is not None and not spec.matrix_free:
+        return target
+    from repro_torch.analysis import autotune  # lazy: import cycle
+    Bn, d, dtype = autotune.operator_regime(matvec)
+    if autotune.should_shard(Bn, d, mesh_size=int(matvec.mesh.size()),
+                             instance_sharded=matvec.instance_sharded,
+                             spd=bool(spec and spec.symmetric_only),
+                             dtype=dtype, precond=precond):
+        return target
+    return method
 
 
 def route_solve(solve, matvec, b, *, tol: float = 1e-6, maxiter: int = 1000,
@@ -928,8 +1015,10 @@ def route_solve(solve, matvec, b, *, tol: float = 1e-6, maxiter: int = 1000,
     against the routed solver, ``"auto"`` dispatches on its structure, and
     ``"jacobi"`` derives from ``operator.diagonal()``.  A batch-aware
     operator (``batch_ndim == 1``) routes the whole batch as ONE masked
-    solve.  ``init`` warm-starts the routed solver; ``return_info`` also
-    returns the per-instance ``SolveInfo``.
+    solve.  A mesh-placed operator (``ShardedOperator``) upgrades the
+    classic names to the ``sharded_*`` solvers (``_upgrade_for_sharded``).
+    ``init`` warm-starts the routed solver; ``return_info`` also returns
+    the per-instance ``SolveInfo``.
     """
     requested = solve if isinstance(solve, str) else getattr(
         solve, "__name__", "custom")
@@ -938,6 +1027,7 @@ def route_solve(solve, matvec, b, *, tol: float = 1e-6, maxiter: int = 1000,
         if isinstance(matvec, LinearOperator) and matvec.batch_ndim == 1:
             example = tree_map(lambda l: l[0], b)
         solve = _resolve_auto(matvec, example, precond, init)
+    solve = _upgrade_for_sharded(solve, matvec, precond=precond)
     if obs_events.observing():
         routed = solve if isinstance(solve, str) else getattr(
             solve, "__name__", "custom")
@@ -965,7 +1055,12 @@ def route_solve(solve, matvec, b, *, tol: float = 1e-6, maxiter: int = 1000,
         kwargs["init"] = init
     if return_info:
         kwargs["return_info"] = True
-    if isinstance(matvec, LinearOperator) and matvec.batch_ndim == 1:
+    if isinstance(matvec, LinearOperator) and matvec.batch_ndim == 1 \
+            and not spec.name.startswith("sharded_"):
+        # the sharded solvers read batchedness off the operator; every
+        # other batch-aware operator (a mesh-placed one whose sharded
+        # upgrade the cost model refused included) gets the whole batch
+        # as ONE masked solve
         kwargs["batch_ndim"] = 1
     return spec.fn(matvec, b, **kwargs)
 
@@ -990,6 +1085,47 @@ register_solver("pallas_cg", solve_pallas_cg, symmetric_only=True,
                 matrix_free=False,
                 description="batched-CG kernel (Hopper CUDA on the card; "
                             "dense, d<=512)")
+
+
+# --- distributed variants (in repro_torch.distributed.sharded_operators) ---
+# Registered here with lazy imports so that importing repro_torch.core
+# never pulls the distributed layer.  They need a ShardedOperator operand:
+# the whole masked solve loop runs on its mesh's local shards.
+
+def solve_sharded_cg(matvec, b, **kw):
+    """Distributed CG (SPD): the masked loop on the local shards; dot
+    products go through the operator's reduction hook."""
+    from repro_torch.distributed import sharded_operators as dso
+    return dso.sharded_solve_cg(matvec, b, **kw)
+
+
+def solve_sharded_normal_cg(matvec, b, **kw):
+    """Distributed CG on the normal equations (general square A)."""
+    from repro_torch.distributed import sharded_operators as dso
+    return dso.sharded_solve_normal_cg(matvec, b, **kw)
+
+
+def solve_sharded_dense_gmres(matvec, b, **kw):
+    """Distributed dense GMRES: each shard materializes + solves its batch
+    slice (batch sharding only)."""
+    from repro_torch.distributed import sharded_operators as dso
+    return dso.sharded_solve_dense_gmres(matvec, b, **kw)
+
+
+# the reference's descriptions: ShardedOperator.shard_map is the port's
+# shard_map
+register_solver("sharded_cg", solve_sharded_cg, symmetric_only=True,
+                supports_precond=True,
+                description="distributed CG under shard_map "
+                            "(ShardedOperator; A symmetric PSD)")
+register_solver("sharded_normal_cg", solve_sharded_normal_cg,
+                supports_precond=True,
+                description="distributed normal-equations CG under "
+                            "shard_map (ShardedOperator; general A)")
+register_solver("sharded_dense_gmres", solve_sharded_dense_gmres,
+                supports_precond=True, matrix_free=False,
+                description="per-shard dense GMRES under shard_map "
+                            "(ShardedOperator; batch sharding, d<=512)")
 
 
 def solve(matvec: Callable, b, *, method="cg", batch_axes: Optional[int] = None,
@@ -1030,6 +1166,7 @@ def solve(matvec: Callable, b, *, method="cg", batch_axes: Optional[int] = None,
             example = tree_map(
                 lambda l: l.select(int(batch_axes), 0), b)
         method = _resolve_auto(matvec, example, precond, init)
+    method = _upgrade_for_sharded(method, matvec, precond=precond)
     if callable(method):
         if batch_axes is not None:
             raise ValueError("batch_axes requires a registry solver name; "

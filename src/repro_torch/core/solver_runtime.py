@@ -38,8 +38,12 @@ default), ``ProjectedGradient``, ``MirrorDescent``,
 ``torch.func.grad``, so objectives return scalar tensors.  The deprecated
 functional factories live in ``repro_torch.core.solvers``.
 
-Not ported yet: ``sharding=`` (ROADMAP queue A.11) raises
-``NotImplementedError``.
+Mesh placement (``sharding=``, a ``SolveSharding``): the implicit
+backward/tangent solve runs sharded (the ``JacobianOperator`` inherits the
+placement; classic solver names upgrade to their sharded variants).  When
+θ arrives as DTensors, the iterate is pinned to the solution's specs
+before the loop, which then runs on DTensors; with plain tensors (global
+values) the forward loop runs on them as given.
 """
 from __future__ import annotations
 
@@ -52,9 +56,9 @@ import torch.func
 
 from repro_torch.core import diff_api, optimality
 from repro_torch.core import linear_solve as ls
-from repro_torch.core._tree import (Flat, batch_first, is_batched,
-                                    ravel_pytree, tree_flatten, tree_leaves,
-                                    tree_map)
+from repro_torch.core._tree import (Flat, _has_dtensor, batch_first,
+                                    is_batched, ravel_pytree, tree_flatten,
+                                    tree_leaves, tree_map)
 # tree math shared with the linear-solve engine
 from repro_torch.core.linear_solve import _tree_l2, _tree_sub
 from repro_torch.core.operators import _ravel1
@@ -173,8 +177,9 @@ class IterativeSolver:
     ``run(..., mode=...)``): ``"auto"`` (reverse and forward mode on the
     same ``run()``), ``"jvp"`` (forward only), ``"vjp"`` (reverse only).
 
-    ``sharding`` must be ``None``: mesh placement (ROADMAP A.11) is not
-    ported yet and raises ``NotImplementedError``.
+    ``sharding`` (a ``distributed.sharded_operators.SolveSharding``)
+    places the implicit backward/tangent solve on a mesh, and pins a
+    DTensor run's iterate to the solution's specs.
     """
     maxiter: int = _kw(1000)
     tol: float = _kw(1e-8)
@@ -192,10 +197,6 @@ class IterativeSolver:
 
     def __post_init__(self):
         ls.check_backward(self.backward, self.backward_iters)
-        if self.sharding is not None:
-            raise NotImplementedError(
-                "sharding= (mesh placement of the iterate and the backward "
-                "solve) is not ported yet (ROADMAP queue A.11)")
 
     # -- protocol ----------------------------------------------------------
     def init_state(self, params, *theta):
@@ -235,6 +236,10 @@ class IterativeSolver:
             params = Flat(init_params).trees(out[:-3])[0]
             return params, OptInfo(*out[-3:])
         params = init_params
+        if self.sharding is not None and _has_dtensor(params, theta):
+            # pin the iterate to its placement before the loop (the loop
+            # body keeps it)
+            params = self.sharding.constrain(params)
         state = self.init_state(params, *theta)
         while self._continuing(state):
             params, state = self.update(params, state, *theta)
@@ -304,7 +309,8 @@ class IterativeSolver:
             optimality_fun=self.optimality_fun, solve=self.solve,
             tol=self.linsolve_tol, maxiter=self.linsolve_maxiter,
             ridge=self.ridge, precond=self.precond, has_aux=True,
-            backward=self.backward, backward_iters=self.backward_iters,
+            sharding=self.sharding, backward=self.backward,
+            backward_iters=self.backward_iters,
             error_estimate=self.error_estimate)
 
     def run(self, init_params, *theta, mode: Optional[str] = None):
@@ -345,7 +351,7 @@ class IterativeSolver:
         spec = self.diff_spec()
         _, info = diff_api.root_vjp(
             spec.residual_fun, params, theta, cotangent, solve=spec.solve,
-            error_estimate=True, return_info=True,
+            sharding=spec.sharding, error_estimate=True, return_info=True,
             system_operator=spec.system_operator,
             **spec.routing_kwargs(), **spec.backward_kwargs())
         return info.hypergrad_error_estimate

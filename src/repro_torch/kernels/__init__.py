@@ -2,24 +2,31 @@
 
 batched_cg/   — fused batched conjugate gradient over dense small SPD
                 systems (d ≤ 512), the implicit-diff backward hot path; CUDA
-                C++ for sm_90a, one thread-block cluster per instance with
-                A in its shared memory (one block per instance, A read from
-                device memory, where no cluster holds it), with an
-                implicit-diff backward (counterpart of the Pallas kernel in
+                C++ for sm_90a, two routes in one library: the cluster route
+                (a thread-block cluster of 1, 2, 4 or 8 CTAs an instance, A
+                loaded once into their shared memory) and the stream route
+                (one block an instance, A re-read from device memory every
+                iteration, where no cluster holds it), with an implicit-diff
+                backward (counterpart of the Pallas kernel in
                 ``repro/kernels/batched_cg``)
 simplex_proj/ — row-wise projection onto the scale-simplex by float32
                 bisection, the projection of the multiclass-SVM path; CUDA
-                C++ for sm_90a, one warp per row, with the closed-form
-                Jacobian as its jvp and backward (counterpart of the Pallas
-                kernel in ``repro/kernels/simplex_proj``)
+                C++ for sm_90a, a row in the registers of 8, 16 or 32 lanes
+                (``kernel.layout``; shared memory past d = 1024), with the
+                closed-form Jacobian as its jvp and backward (counterpart of
+                the Pallas kernel in ``repro/kernels/simplex_proj``)
 flash_attention/ — forward online-softmax attention on the (B, S, H, D)
                 layout with GQA, the dense models' prefill attention; CUDA
-                C++ for sm_90a, one thread block per (batch·head, 64 query
-                rows) (counterpart of ``repro/kernels/flash_attention``)
+                C++ for sm_90a, two routes in one library: ``tc`` (bfloat16
+                on the tensor cores, wgmma and TMA, one producer and two
+                consumer warpgroups) and ``simt`` (float32 and the other
+                bfloat16 shapes, on the CUDA cores) (counterpart of
+                ``repro/kernels/flash_attention``)
 rwkv_wkv/     — the RWKV-6 WKV recurrence, the RWKV models' prefill time
-                mixing; CUDA C++ for sm_90a, one thread block per (batch,
-                head) with the 64×64 state in registers (counterpart of
-                ``repro/kernels/rwkv_wkv``)
+                mixing; CUDA C++ for sm_90a, two 64-thread blocks a (batch,
+                head), each thread keeping an 8 × 4 tile of the state in
+                registers, the inputs staged by ``cp.async`` a chunk ahead
+                (counterpart of ``repro/kernels/rwkv_wkv``)
 
 Each kernel ships ``csrc/*.cu`` (the CUDA source), ``kernel.py`` (its
 ctypes binding), ``ops.py`` (the public op, which launches the kernel on

@@ -7,12 +7,15 @@ lo = min(max(y) − scale, min(y) − scale/d), output max(y − τ, 0) cast bac
 to the input type.  The port's CUDA kernel bisects the same bracket but
 stops once no value lies inside it and takes τ in closed form from the
 support, which agrees with the 50 steps to float32 rounding.  The
-sort-based oracle is ``repro_torch.core.projections.projection_simplex``.
+sort-based oracle is ``projection_simplex_ref``, the reference's name for
+``repro_torch.core.projections.projection_simplex``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.projections import \
+    projection_simplex as projection_simplex_ref  # noqa: F401
 from repro_torch.kernels.simplex_proj.kernel import ITERS
 
 

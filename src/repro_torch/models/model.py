@@ -142,7 +142,7 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
                                   "training slice (ROADMAP A.12)")
     if act_sharding is not None or sp_sharding is not None:
         raise NotImplementedError("sharding constraints come with the "
-                                  "distributed slice (ROADMAP A.11/A.12)")
+                                  "training slice (ROADMAP A.12)")
     if moe_dispatch != "dense":
         raise NotImplementedError("MoE dispatch comes with the MoE slice "
                                   "(ROADMAP A.12)")

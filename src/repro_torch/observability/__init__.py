@@ -16,7 +16,9 @@ package:
 """
 from repro_torch.observability.events import (EVENT_KINDS, SolveEvent,
                                               clear_recorded, emit,
-                                              emit_pair, observe, observing,
+                                              emit_pair, jit_event,
+                                              jit_event_pair, observe,
+                                              observing,
                                               observing_iterations, recorded,
                                               subscribe)
 from repro_torch.observability.metrics import (DEFAULT_BUCKETS,
@@ -31,11 +33,6 @@ from repro_torch.observability.report import (format_summary, load_trace,
 from repro_torch.observability.spans import (Span, Tracer, configure_tracer,
                                              current_tracer, remove_tracer,
                                              span)
-
-# The reference stages these inside traced programs; eager PyTorch has no
-# traced program, so the event is emitted at the call.
-jit_event = emit
-jit_event_pair = emit_pair
 
 __all__ = [
     "EVENT_KINDS", "SolveEvent", "observe", "observing",

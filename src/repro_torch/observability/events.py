@@ -7,7 +7,10 @@ host call:
 
   * :func:`emit` — one event, delivered immediately;
   * :func:`emit_pair` — a ``*_start``/``*_done`` pair sharing one receipt
-    time (the counterpart of ``jit_event_pair``).
+    time;
+  * :func:`jit_event` / :func:`jit_event_pair` — the reference's names for
+    events from traced code, bound to ``emit`` / ``emit_pair``: eager
+    PyTorch has no traced program, so the event is emitted at the call.
 
 Both are gated by the process-level :func:`observe` switch, and the gate
 is one boolean check: with observability off (the default) callers test
@@ -50,8 +53,8 @@ from repro_torch.observability import spans as _spans
 
 __all__ = [
     "SolveEvent", "EVENT_KINDS", "observe", "observing",
-    "observing_iterations", "emit", "emit_pair", "subscribe", "recorded",
-    "clear_recorded",
+    "observing_iterations", "emit", "emit_pair", "jit_event",
+    "jit_event_pair", "subscribe", "recorded", "clear_recorded",
 ]
 
 EVENT_KINDS = (
@@ -253,3 +256,9 @@ def emit_pair(start_kind: str, end_kind: str,
     _dispatch(start_kind, tags or {}, {}, t)
     _dispatch(end_kind, tags or {}, {k: _host(v) for k, v in values.items()},
               t)
+
+
+# The reference stages these inside traced programs; eager PyTorch has no
+# traced program, so the event is emitted at the call.
+jit_event = emit
+jit_event_pair = emit_pair

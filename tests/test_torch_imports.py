@@ -10,9 +10,21 @@ exports the reference's ``__all__`` and ``repro_torch.analysis`` its
 ``autotune``, ``roofline`` and ``op_census`` (the census in ``hlo``'s
 place).  ``repro_torch.core`` exports
 every public name of ``repro.core`` but those of the parts still queued.
+
+Every ported submodule (each module of ``repro_torch`` whose counterpart
+exists in ``repro``) carries its reference's public names: the reference's
+``__all__`` where it has one; where it has none, its public top-level
+functions, classes and UPPER-case constants — those defined there, those
+it binds under another name (``projection_simplex_ref``), and a package's
+re-exports — apart from the names listed below with their reason.
+``repro_torch.distributed.spec`` has no reference module (the reference
+imports ``P`` from ``jax.sharding``).
 """
 import ast
+import importlib
+import inspect
 import pathlib
+import pkgutil
 
 import numpy as np
 import pytest
@@ -37,6 +49,69 @@ OBSERVABILITY_NAMES = (
 # analysis, distributed, the rest of the LM stack) and so are not in
 # repro_torch.core yet: none — repro.core exports none of theirs
 LATER_CORE_NAMES = frozenset()
+# reference names a ported submodule does not carry, and why
+_PALLAS_LEVEL = "Pallas-level: each port's kernel.launch takes their place"
+NOT_MIRRORED = {
+    "repro_torch.analysis.autotune": (
+        {"block_b_candidates", "choose_block_b", "default_block_b",
+         "measure_block_schedule"},
+        "B.1's layout schedule replaces the TPU's block_b schedule"),
+    "repro_torch.kernels.batched_cg.kernel": (
+        {"LANES", "batched_cg_pallas", "pad_to_lanes"}, _PALLAS_LEVEL),
+    "repro_torch.kernels.flash_attention.kernel": (
+        {"NEG_INF", "flash_attention_bhsd"}, _PALLAS_LEVEL),
+    "repro_torch.kernels.rwkv_wkv.kernel": ({"wkv_bh"}, _PALLAS_LEVEL),
+    "repro_torch.kernels.simplex_proj.kernel": (
+        {"projection_simplex_rows"}, _PALLAS_LEVEL),
+    "repro_torch.models": (
+        {"init_params_abstract", "loss_fn"}, "ROADMAP A.12b, training"),
+    "repro_torch.models.layers": (
+        {"make_mla_cache", "mla_apply", "mla_init"},
+        "ROADMAP A.12a, the MLA family"),
+    "repro_torch.models.model": (
+        {"REMAT_POLICIES", "SHARED_ATTN_EVERY", "init_params_abstract",
+         "loss_fn"}, "ROADMAP A.12a/b, the hybrid family and training"),
+    "repro_torch.runtime": (
+        {"ElasticPlan", "HeartbeatRegistry", "PreemptionHandler",
+         "StragglerMonitor", "TrainState", "TrainStepConfig",
+         "make_train_state", "make_train_step", "run_train_loop"},
+        "ROADMAP A.12b, training"),
+    "repro_torch.runtime.train_loop": (
+        {"TrainState", "TrainStepConfig", "make_train_state",
+         "make_train_state_abstract", "make_train_step", "train_loop"},
+        "ROADMAP A.12b, training"),
+}
+
+
+def _ported_submodules():
+    """(port module, reference module) names of every ported submodule."""
+    import repro_torch
+    out = []
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        ref = "repro" + info.name[len("repro_torch"):]
+        if importlib.util.find_spec(ref.rsplit(".", 1)[0]) is not None and \
+                importlib.util.find_spec(ref) is not None:
+            out.append((info.name, ref))
+    return out
+
+
+def _public_names(mod):
+    """A reference module's public names (see the module docstring)."""
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    is_pkg = hasattr(mod, "__path__")
+    out = set()
+    for name, obj in vars(mod).items():
+        if name.startswith("_") or inspect.ismodule(obj):
+            continue
+        owner = getattr(obj, "__module__", None) or ""
+        if inspect.isfunction(obj) or inspect.isclass(obj):
+            if owner == mod.__name__ or (owner.split(".")[0] == "repro" and (
+                    is_pkg or name != obj.__name__)):
+                out.add(name)
+        elif name.isupper():
+            out.add(name)
+    return out
 
 
 def _imported_roots(path: pathlib.Path):
@@ -88,7 +163,13 @@ def test_port_has_modules():
                    "repro_torch/stochastic/host.py",
                    "repro_torch/analysis/roofline.py",
                    "repro_torch/analysis/autotune.py",
-                   "repro_torch/analysis/op_census.py"):
+                   "repro_torch/analysis/op_census.py",
+                   "repro_torch/distributed/__init__.py",
+                   "repro_torch/distributed/spec.py",
+                   "repro_torch/distributed/sharded_operators.py",
+                   "repro_torch/distributed/sharding.py",
+                   "repro_torch/distributed/pipeline.py",
+                   "repro_torch/launch/mesh.py"):
         assert module in names
     assert (REPO / "chip_smoke.py").exists()
     for name in ("flash_attention", "rwkv_wkv"):
@@ -168,3 +249,35 @@ def test_core_exports_what_the_reference_core_exports():
                  "solve_neumann", "deq_fixed_point", "make_deq_block",
                  "make_deq_solver"):
         assert name in public and hasattr(port, name), name
+
+
+SUBMODULES = _ported_submodules()
+
+
+def test_every_new_module_of_the_slice_is_a_ported_submodule():
+    names = {port for port, _ in SUBMODULES}
+    for module in ("repro_torch.distributed",
+                   "repro_torch.distributed.sharded_operators",
+                   "repro_torch.distributed.sharding",
+                   "repro_torch.distributed.pipeline",
+                   "repro_torch.launch.mesh",
+                   "repro_torch.observability.events",
+                   "repro_torch.kernels.simplex_proj.ref"):
+        assert module in names, module
+    assert "repro_torch.distributed.spec" not in names
+
+
+@pytest.mark.parametrize("port_name,ref_name", SUBMODULES,
+                         ids=[port for port, _ in SUBMODULES])
+def test_ported_submodule_carries_the_reference_names(port_name, ref_name):
+    reference = importlib.import_module(ref_name)
+    port = importlib.import_module(port_name)
+    skipped, _why = NOT_MIRRORED.get(port_name, (set(), ""))
+    want = _public_names(reference)
+    assert skipped <= want, f"{port_name}: stale exceptions {skipped - want}"
+    missing = sorted(n for n in want - skipped if not hasattr(port, n))
+    assert not missing, f"{port_name} lacks {missing} of {ref_name}"
+    if hasattr(reference, "__all__"):
+        assert set(reference.__all__) <= set(getattr(port, "__all__", ())), \
+            f"{port_name}.__all__ lacks " \
+            f"{sorted(set(reference.__all__) - set(port.__all__))}"

@@ -328,12 +328,15 @@ def test_backward_solve_goes_through_the_named_registry_solver():
 
 
 def test_unported_parts_raise():
-    """Mesh placement still raises (A.11); what A.4 brought now runs: the
-    approximate backward fields (validated as in the reference),
-    ``estimate_hypergrad_error`` and a batch axis over ``run()``."""
+    """What A.4 and A.11 brought now runs: mesh placement (``sharding``
+    reaches the solver's spec; ``tests/test_torch_sharded_operators.py``
+    runs it), the approximate backward fields (validated as in the
+    reference), ``estimate_hypergrad_error`` and a batch axis over
+    ``run()``."""
     f = lambda x, t: 0.5 * ((x - t) ** 2).sum()
-    with pytest.raises(NotImplementedError, match="A.11"):
-        trt.GradientDescent(f, sharding=object())
+    placement = object()
+    assert trt.GradientDescent(f, sharding=placement).diff_spec() \
+        .sharding is placement
     with pytest.raises(ValueError, match="backward_iters"):
         trt.GradientDescent(f, backward="neumann_k", backward_iters=0)
     approx = trt.GradientDescent(f, backward="one_step")
