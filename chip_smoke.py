@@ -19,7 +19,8 @@ multiclass-SVM hyper-parameter optimisation — ``solve_bilevel`` over a
 simplex-projection kernel (phases 9-11); and LM serving of ``qwen1.5-4b``
 and ``rwkv6-3b`` at full width and depth — the prefill step through the
 hand-written flash-attention and WKV kernels, the decode loop, the
-launcher and the continuous-batching engine (phases 12-16).  Each phase
+launcher and the continuous-batching engine (phases 12-16) — and of the
+MoE, hybrid and MLA families at full width (phases 25-27).  Each phase
 prints one line:
 
   1. card: name, device count, ``nvidia-smi`` name and power limit;
@@ -100,7 +101,10 @@ prints one line:
  12. flash-attention kernels against plain: the op on CUDA tensors against
      ``attention_ref`` (top-left causal) at (B, Sq, Sk, H, Hkv, D) ∈
      {(2, 128, 128, 4, 4, 64) causal and not, (2, 200, 200, 8, 2, 128) GQA
-     with a ragged tile, (4, 2048, 2048, 20, 20, 128) the prefill shape},
+     with a ragged tile, (4, 2048, 2048, 20, 20, 128) the prefill shape,
+     (4, 2048, 2048, 24, 8, 64) ``granite-moe-3b-a800m``'s (a GQA group of
+     3), (4, 2048, 2048, 32, 32, 112) ``zamba2-7b``'s (D = 112, run in the
+     128-column instantiation)},
      float32 and bfloat16, and in bfloat16 (1, 77, 77, 4, 1, 80) MQA with a
      padded head, (1, 64, 130, 2, 2, 256), (3, 33, 17, 6, 3, 64) and
      (2, 100, 100, 4, 2, 32): max |Δ| ≤ 1e-4·max|ref| in float32 (sums in
@@ -149,15 +153,20 @@ prints one line:
      CUDA-core kernel's bf16 instantiation and
      ``F.scaled_dot_product_attention`` on the same tensors (yardstick
      only — the port never calls it), each with its TFLOP/s; its bound and
-     the plain version; the WKV kernel at (4, 2048, 40, 64) bfloat16
-     r/k/v (twice, device time as in 11; with ``--previous`` the earlier
-     design's kernel in turns with it), its bound, the plain scan and
-     ``wkv_chunked`` (no single
-     PyTorch call computes it); the prefill step's ms and tokens/s with
-     and without the kernels, one kernel prefill step under
-     ``torch.profiler`` (device time of the port's kernels, of the matrix
-     products and of the rest; the device busy share of the step), and
-     the decode tokens/s of the launcher and the engine, for both models.
+     the plain version; the tc kernel at ``granite-moe-3b-a800m``'s
+     (4, 2048, 24, 8, 64) and ``zamba2-7b``'s (4, 2048, 32, 32, 112)
+     shapes in turns with SDPA (``enable_gqa`` for the first), each with
+     its bound (at D = 112 the kernel issues 128 columns a head, so it can
+     reach at most 87.5 % of the bound); the WKV kernel at
+     (4, 2048, 40, 64) bfloat16 r/k/v (twice, device time as in 11; with
+     ``--previous`` the earlier design's kernel in turns with it), its
+     bound, the plain scan and ``wkv_chunked`` (no single PyTorch call
+     computes it); the prefill step's ms and tokens/s with and without
+     the kernels, one kernel prefill step under ``torch.profiler`` (device
+     time of the port's kernels, of the matrix products and of the rest;
+     the device busy share of the step), and the decode tokens/s of the
+     launcher and the engine, for both models (and for the models of
+     phases 25-27 on their own "times" lines).
  17. a batch of hypergradients as one solve: 64 ridge problems of phase
      4's recipe (Xᵢ (1024, 512), θᵢ log-uniform in [1e-2, 1], yᵢ), float32,
      a ``custom_root`` ridge solver (forward ``torch.linalg.solve``, no
@@ -259,7 +268,39 @@ prints one line:
      (c) in a fresh tuning cache, ``autotune.measure_solver("sharded_cg",
      64, 512, mesh_size=1)`` and ``auto_mesh_size(64, 512)`` (1).
 
-Phases 17-24 each print their duration on a line of their own.  The run
+ 25. ``granite-moe-3b-a800m`` whole (32 layers, d 1536, 24 / 8 heads of
+     D 64, 40 experts, top-8, expert f 512; 3.37 B parameters), prefill
+     (4, 2048), through ``phase_lm`` as phases 14-15: float32 kernel
+     prefill (exactly 32 flash-attention launches, all simt) against plain
+     within 1e-3, the controls (zeroed attention output, S and H swapped)
+     above the bfloat16 limit, decode against prefill over (2, 64) within
+     1e-5 and at 1 and 4 layers within 1e-5; bfloat16: exactly 32 tc
+     launches, kernel against plain within 5e-2, the plain op's
+     floor, the controls, decode against prefill reported; the engine (16
+     requests on 8 slots, a request alone equal to it in the batch), the
+     launcher; the summed MoE aux loss finite and within 1e-3 between the
+     kernel and the plain prefill in both types; beside each comparison,
+     the tokens whose top-k expert set differs from the plain run's (or
+     the prefill's) in some layer, and the kernel prefill's error over the
+     tokens routed alike; times, ``torch.profiler`` split and peak memory;
+ 26. ``zamba2-7b`` whole (81 Mamba-2 layers, d 3584, d_inner 7168, 112
+     SSM heads of P 64, N 64; the shared attention, 32 heads of D 112,
+     after each of 3 segments of 27), the same checks with exactly 3
+     launches a prefill step; float32 decode against prefill within 5e-5
+     (the chunked SSD scan against the recurrence over 81 layers), the
+     bfloat16 limit 5e-2;
+ 27. ``deepseek-v2-236b`` at full width (d 5120, 128 heads, kv_lora 512,
+     q_lora 1536, 160 routed + 2 shared experts, top-6, f 1536) and 2 of
+     its 60 layers (60 take ≈ 470 GB), prefill (1, 2048): MLA never reaches
+     the flash-attention kernel (as in the reference), so every prefill
+     launches 0 and the kernel prefill equals ``use_kernel=False`` bit for
+     bit; the controls act on ``mla_apply`` (zeroed output, sequence
+     reversed), above 5e-2; float32 decode against prefill (1, 64) within
+     1e-5 and at 1 layer within 1e-5; the launcher (which runs the whole
+     config) is not run.
+
+Phases 17-27 each print their duration on a line of their own, and the
+script its total.  The run
 fails at once if ``REPRO_AUTOTUNE_CACHE`` is set: phases 3-20 hold every
 batched-CG launch to the kernel's rule, which only a cold tuning cache
 gives (``solve_pallas_cg`` takes ``layout="auto"``).
@@ -271,8 +312,10 @@ batched_cg, ``ops.LAUNCHES_BY_LAYOUT``; for flash attention,
 24's single-device gradient for batched_cg — not 22's sweep, whose
 launches it prints apart —
 phase 6's forward and backward each on their own, 10 for simplex_proj,
-each kernel prefill of 14 for flash_attention and of 15 for rwkv_wkv; the JSON line reports the bfloat16 one, for flash
-attention its tc launches, and adds the CUDA-core kernel's time as
+each kernel prefill of 14 and 25-27 for flash_attention and of 15 for
+rwkv_wkv; the JSON line reports the bfloat16 ones, for flash attention
+the tc launches of 14, 25 and 26 summed, and adds the CUDA-core kernel's
+time as
 ``previous_ms``) and read just after.  ``previous_ms`` of batched_cg is
 the stream route's time in the same turns; of simplex_proj and rwkv_wkv
 the earlier design's time, measured when ``--previous`` names an earlier
@@ -286,6 +329,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -349,10 +393,14 @@ WKV_SOURCE = "src/repro_torch/kernels/rwkv_wkv/csrc/rwkv_wkv.cu"
 WKV_REPLACES = "src/repro/kernels/rwkv_wkv/kernel.py:21"
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
 # phase 12: (B, Sq, Sk, H, Hkv, D, causal), float32 and bfloat16; the last
-# is qwen1.5-4b's prefill
+# three are the served prefills
 FA_SHAPES = [(2, 128, 128, 4, 4, 64, True), (2, 128, 128, 4, 4, 64, False),
              (2, 200, 200, 8, 2, 128, True),
-             (4, 2048, 2048, 20, 20, 128, True)]
+             (4, 2048, 2048, 20, 20, 128, True),
+             # granite-moe-3b-a800m's (GQA, a group of 3) and zamba2-7b's
+             # (D = 112, run in the 128-column instantiation) prefills
+             (4, 2048, 2048, 24, 8, 64, True),
+             (4, 2048, 2048, 32, 32, 112, True)]
 # and in bfloat16 only: a ragged D = 80 head with MQA, D = 256 with Sq < Sk,
 # and Sq > Sk with GQA, so that the tc route meets them on every run
 FA_BF16_SHAPES = [(1, 77, 77, 4, 1, 80, True), (1, 64, 130, 2, 2, 256, True),
@@ -363,6 +411,9 @@ FA_BF16_SHAPES = [(1, 77, 77, 4, 1, 80, True), (1, 64, 130, 2, 2, 256, True),
 # (B, T, H), N = 64: one step; one short chunk; partial last chunks; odd H
 WKV_SHAPES = [(1, 1, 1), (2, 100, 3), (4, 2048, 40), (1, 37, 1), (3, 130, 7)]
 LM_PREFILL = (4, 2048)             # (B, S) of the prefill step
+# phase 16: (B, S, H, Hkv, D) of granite-moe-3b-a800m's and zamba2-7b's
+# prefill attention, timed beside qwen1.5-4b's
+FA_SERVED = [(4, 2048, 24, 8, 64), (4, 2048, 32, 32, 112)]
 LM_DECODE = (2, 64)                # (B, S) of decode against prefill
 LM_F32_RTOL = 1e-3                 # ‖Δ‖/‖ref‖ of float32 prefill logits
 # ‖Δ‖/‖ref‖ of float32 decode logits against prefill at full depth, each
@@ -374,6 +425,26 @@ LM_DECODE_SHALLOW_RTOL = 1e-5
 # ‖Δ‖/‖ref‖ of bfloat16 kernel prefill logits against use_kernel=False,
 # fixed per model between the plain op's floor and the controls (PERF.md)
 LM_RTOL = {"qwen1.5-4b": 5e-2, "rwkv6-3b": 8e-2}
+# phases 25-27: the MoE, MLA and hybrid families at full width; each
+# config's phase, depth (None: its own), prefill (B, S), flash-attention
+# launches in one prefill step, and whether the launcher serves it (it
+# runs the whole config: deepseek-v2-236b's 60 layers do not fit a card)
+FAMILIES = {
+    "granite-moe-3b-a800m": dict(phase=25, layers=None, prefill=(4, 2048),
+                                 launches=32, launcher=True),
+    "zamba2-7b": dict(phase=26, layers=None, prefill=(4, 2048), launches=3,
+                      launcher=True),
+    "deepseek-v2-236b": dict(phase=27, layers=2, prefill=(1, 2048),
+                             launches=0, launcher=False),
+}
+# their limits, set from the readings (PERF.md §6): bfloat16 kernel prefill
+# 2.815e-02 / 2.607e-02 / 0 (granite's with 7,054 of 8,192 tokens routed
+# otherwise in some layer) under 5e-2, the controls 9.11e-02 and above;
+# float32 decode against prefill 1.216e-06 / 1.838e-05 / 2.934e-06
+LM_RTOL.update({"granite-moe-3b-a800m": 5e-2, "zamba2-7b": 5e-2,
+                "deepseek-v2-236b": 5e-2})
+LM_DECODE_RTOL.update({"granite-moe-3b-a800m": 1e-5, "zamba2-7b": 5e-5,
+                       "deepseek-v2-236b": 1e-5})
 ENGINE = dict(num_slots=8, requests=16, prompt=(8, 32), new_tokens=16,
               max_len=64)
 
@@ -1354,6 +1425,40 @@ def logits_error(got, want):
     return out
 
 
+@contextlib.contextmanager
+def moe_routing():
+    """While active, records every MoE layer's top-k set (gates > 0, on the
+    card) and load-balancing loss, in call order, by wrapping the router of
+    ``repro_torch.models.moe``; yields ``{"sets": [...], "aux": [...]}``."""
+    from repro_torch.models import moe
+    real = moe._router_probs
+    rec = {"sets": [], "aux": []}
+
+    def recording(params, m, x):
+        gates, aux = real(params, m, x)
+        rec["sets"].append(gates > 0)
+        rec["aux"].append(aux)
+        return gates, aux
+    moe._router_probs = recording
+    try:
+        yield rec
+    finally:
+        moe._router_probs = real
+
+
+def routing_diff(a, b):
+    """The (B, S) mask of tokens whose top-k set differs in any MoE layer
+    between two records of the same tokens (lists of (B, S, E) masks, one
+    a layer)."""
+    check(len(a) == len(b) > 0, f"routing records of {len(a)} and {len(b)} "
+          "layers")
+    diff = None
+    for x, y in zip(a, b):
+        d = (x != y).any(-1)
+        diff = d if diff is None else diff | d
+    return diff
+
+
 def lm_prefill_checks(cfg, params, tokens, ops, op_name, replacements):
     """The prefill step with the kernel (launches counted just around it)
     against the plain prefill (``use_kernel=False``), and the same kernel
@@ -1362,36 +1467,57 @@ def lm_prefill_checks(cfg, params, tokens, ops, op_name, replacements):
     replacement's logits are measured against the plain prefill and
     against the kernel prefill.  Where the op counts its launches by route
     (``ops.LAUNCHES_BY_ROUTE``), those counts are set to 0 and read with
-    ``ops.LAUNCHES``."""
+    ``ops.LAUNCHES``.  For an MoE model, the tokens whose top-k set
+    differs in some layer from the plain prefill's are counted for the
+    kernel prefill and each replacement (``flips``), and the summed aux
+    loss of the kernel and the plain prefill is returned (``aux``)."""
     import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.runtime import make_prefill_step
     kernel_step = make_prefill_step(cfg, use_kernel=True)
-    by_route = getattr(ops, "LAUNCHES_BY_ROUTE", {})
-    ops.LAUNCHES = 0
+    counted = ops if hasattr(ops, "LAUNCHES") else fa_ops
+    by_route = getattr(counted, "LAUNCHES_BY_ROUTE", {})
+    counted.LAUNCHES = 0
     for name in by_route:
         by_route[name] = 0
-    logits = kernel_step(params, tokens)
+    with moe_routing() as rec_k:
+        logits = kernel_step(params, tokens)
     sync(tokens.device)
-    launches = ops.LAUNCHES
+    launches = counted.LAUNCHES
     routes = dict(by_route)
-    want = make_prefill_step(cfg, use_kernel=False)(params, tokens)
+    with moe_routing() as rec_p:
+        want = make_prefill_step(cfg, use_kernel=False)(params, tokens)
     err = logits_error(logits, want)
     finite = bool(torch.isfinite(logits).all())
     shape_ok = tuple(logits.shape) == tuple(tokens.shape) + (cfg.vocab_size,)
+    moe = cfg.moe is not None
+    flips, err_alike = {}, None
+    if moe:       # and the error over the tokens routed alike in every layer
+        diff = routing_diff(rec_k["sets"], rec_p["sets"])
+        flips["kernel"] = int(diff.sum())
+        err_alike = logits_error(logits[~diff], want[~diff])[0]
+    aux = tuple(float(torch.stack(r["aux"]).sum()) for r in (rec_k, rec_p)) \
+        if moe else None
+    same = bool(torch.equal(logits, want))
     others = {}
     real = getattr(ops, op_name)
     for name, make in replacements.items():
         setattr(ops, op_name, make(real))
         try:
-            got = kernel_step(params, tokens)
+            with moe_routing() as rec:
+                got = kernel_step(params, tokens)
         finally:
             setattr(ops, op_name, real)
         others[name] = (logits_error(got, want)[0],
                         logits_error(got, logits)[0])
-        del got
-    del logits, want
+        if moe:
+            flips[name] = int(routing_diff(rec["sets"],
+                                           rec_p["sets"]).sum())
+        del got, rec
+    del logits, want, rec_k, rec_p
     return dict(launches=launches, routes=routes, err=err, others=others,
-                finite=finite, shape_ok=shape_ok)
+                finite=finite, shape_ok=shape_ok, flips=flips, aux=aux,
+                same=same, err_alike=err_alike)
 
 
 def lm_decode_vs_prefill(cfg, params, tokens):
@@ -1402,19 +1528,27 @@ def lm_decode_vs_prefill(cfg, params, tokens):
     from repro_torch.models import init_decode_state
     from repro_torch.runtime import make_decode_step, make_prefill_step
     B, S = tokens.shape
-    full = make_prefill_step(cfg, use_kernel=True)(params, tokens)
+    with moe_routing() as rec_f:
+        full = make_prefill_step(cfg, use_kernel=True)(params, tokens)
     step = make_decode_step(cfg)
     state = init_decode_state(cfg, B, S, device=tokens.device)
     outs = []
-    for t in range(S):
-        lg, state = step(params, state, tokens[:, t:t + 1])
-        outs.append(lg[:, 0])
+    with moe_routing() as rec_d:
+        for t in range(S):
+            lg, state = step(params, state, tokens[:, t:t + 1])
+            outs.append(lg[:, 0])
     dec = torch.stack(outs, 1)
     agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
     late = logits_error(dec[:, S // 2:], full[:, S // 2:])[0]
     per_pos = [logits_error(dec[:, t], full[:, t])[0] for t in range(S)]
+    flips = None
+    if cfg.moe is not None:       # decode records (B, 1, E) a layer a step
+        n = len(rec_f["sets"])
+        per_layer = [torch.cat(rec_d["sets"][l::n], dim=1)
+                     for l in range(n)]
+        flips = int(routing_diff(per_layer, rec_f["sets"]).sum())
     return dict(err=logits_error(dec, full), late=late, per_pos=per_pos,
-                agree=agree)
+                agree=agree, flips=flips)
 
 
 def lm_engine(cfg, params, gen, device):
@@ -1536,25 +1670,34 @@ def free(device):
         torch.cuda.empty_cache()
 
 
-def phase_lm(device, gen, arch, seed, ops, op_name, plain_op):
-    """One full-size model.  In float32 (the algorithm at full size): the
-    kernel prefill against the plain prefill, the controls, decode against
-    prefill.  In the config's bfloat16 (the served type, the main path):
-    the kernel prefill with its launches counted, against the plain
-    prefill and against the floor (the op's plain version in place of the
-    kernel), decode against prefill, the engine, the launcher, times."""
+def phase_lm(device, gen, arch, seed, ops, op_name, plain_op,
+             controls=None, layers=None, prefill=LM_PREFILL, launcher=True):
+    """One full-width model (at ``layers`` deep when given, else its own
+    depth).  In float32 (the algorithm at full size): the kernel prefill
+    against the plain prefill, the controls, decode against prefill.  In
+    the config's bfloat16 (the served type, the main path): the kernel
+    prefill with its launches counted, against the plain prefill and
+    against the floor (the op's plain version in place of the kernel; not
+    where ``plain_op`` is None: no kernel on the path), decode against
+    prefill, the engine, the launcher (unless ``launcher`` is False),
+    times.  ``controls`` map a name to a replacement of ``ops.<op_name>``
+    (default: its output zeroed, its S and H axes swapped)."""
     import dataclasses
     import torch
     from torch.utils import _pytree as pytree
     from repro_torch import configs
     from repro_torch.models import init_params
     cfg = configs.get(arch)
-    B, S = LM_PREFILL
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    B, S = prefill
     Bd, Sd = LM_DECODE
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device=device)
 
-    controls = {"zeroed output": zeroed, "swapped axes": swapped}
+    controls = controls or {"zeroed output": zeroed, "swapped axes": swapped}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = init_params(cfg32, gen, device=device)
     f32 = lm_prefill_checks(cfg32, params, tokens, ops, op_name, controls)
@@ -1564,7 +1707,7 @@ def phase_lm(device, gen, arch, seed, ops, op_name, plain_op):
     # the decode witness: the same check at full width and cut depth, on
     # parameters of its own generator (so the later draws stay as they were)
     f32["dec_depth"] = {}
-    for depth in LM_DECODE_DEPTHS:
+    for depth in (d for d in LM_DECODE_DEPTHS if d < cfg.num_layers):
         cut = dataclasses.replace(cfg32, num_layers=depth)
         params = init_params(cut, torch.Generator(device=device).manual_seed(
             seed + depth), device=device)
@@ -1578,28 +1721,47 @@ def phase_lm(device, gen, arch, seed, ops, op_name, plain_op):
     sync(device)
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    floor = {} if plain_op is None else \
+        {"plain op": lambda real: plain_op}
     bf16 = lm_prefill_checks(cfg, params, tokens, ops, op_name,
-                             {"plain op": lambda real: plain_op, **controls})
+                             {**floor, **controls})
     bf16["dec"] = lm_decode_vs_prefill(cfg, params, tokens[:Bd, :Sd])
     engine = lm_engine(cfg, params, gen, device)
     times = dict(kernel_s=prefill_time(cfg, params, tokens, True),
                  plain_s=prefill_time(cfg, params, tokens, False),
                  profile=prefill_profile(cfg, params, tokens))
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 \
+        if device.type == "cuda" else None
     del params, tokens
     free(device)
-    launcher = lm_launcher(arch, seed, device)
-    del launcher["logits"]
-    free(device)
+    served = None
+    if launcher:
+        served = lm_launcher(arch, seed, device)
+        del served["logits"]
+        free(device)
     return dict(cfg=cfg, n_params=n_params, init_s=init_s, f32=f32,
-                bf16=bf16, engine=engine, launcher=launcher, **times)
+                bf16=bf16, engine=engine, launcher=served, prefill=prefill,
+                peak_gb=peak_gb, **times)
 
 
 def check_lm(res, name, want_launches, tag, want_routes=None):
-    """The hard checks of phases 14 and 15.  ``want_routes`` maps a dtype
-    name to the one route all of that prefill's launches must take."""
+    """The hard checks of phases 14, 15 and 25-27.  ``want_routes`` maps a
+    dtype name to the one route all of that prefill's launches must take.
+    An MoE model's summed aux loss is finite and within the float32 limit
+    between the kernel and the plain prefill, in both types; a model with
+    no launch on its path gives the plain prefill's logits bit for bit."""
     f32, bf16, arch = res["f32"], res["bf16"], res["cfg"].name
     limit = LM_RTOL[arch]
     for kind, r in (("float32", f32), ("bfloat16", bf16)):
+        if r["aux"] is not None:
+            a_k, a_p = r["aux"]
+            check(math.isfinite(a_k) and math.isfinite(a_p)
+                  and abs(a_k - a_p) <= LM_F32_RTOL * abs(a_p),
+                  f"phase {tag}: {kind} aux loss kernel {a_k!r} vs plain "
+                  f"{a_p!r}")
+        if want_launches == 0:
+            check(r["same"], f"phase {tag}: a {kind} prefill without kernel "
+                  "launches differs from use_kernel=False")
         check(r["launches"] == want_launches,
               f"phase {tag}: {r['launches']} {name} launches in one "
               f"{kind} prefill step, expected {want_launches}")
@@ -1611,7 +1773,7 @@ def check_lm(res, name, want_launches, tag, want_routes=None):
                   f"expected {want}")
         check(r["finite"] and r["shape_ok"], f"phase {tag}: {kind} prefill "
               "logits not finite or of the wrong shape")
-        for control in ("zeroed output", "swapped axes"):
+        for control in (k for k in r["others"] if k != "plain op"):
             e = r["others"][control][0]
             check(e > limit, f"phase {tag}: a {kind} prefill with {control} "
                   f"is within {limit} of the plain one ({e:.3e})")
@@ -1634,9 +1796,10 @@ def check_lm(res, name, want_launches, tag, want_routes=None):
           f"{ENGINE['requests']} requests")
     check(e["same"], f"phase {tag}: a request served alone differs from the "
           "same request served with others")
-    check(res["launcher"]["tokens"].shape == (4, 16),
-          f"phase {tag}: the launcher returned tokens of shape "
-          f"{tuple(res['launcher']['tokens'].shape)}")
+    if res["launcher"] is not None:
+        check(res["launcher"]["tokens"].shape == (4, 16),
+              f"phase {tag}: the launcher returned tokens of shape "
+              f"{tuple(res['launcher']['tokens'].shape)}")
 
 
 def say_decode(d):
@@ -1647,7 +1810,21 @@ def say_decode(d):
             + " ".join(f"{e:.2e}" for e in pos[:4]) + "; max per quarter "
             + " ".join(f"{max(pos[i:i + q]):.2e}"
                        for i in range(0, len(pos), q))
-            + f"; argmax agreement {d['agree']:.4f})")
+            + f"; argmax agreement {d['agree']:.4f}"
+            + ("" if d.get("flips") is None else
+               f"; tokens routed otherwise {d['flips']}") + ")")
+
+
+def say_flips(r):
+    """An MoE prefill's routing flips and aux losses ('' for other
+    models)."""
+    if not r["flips"]:
+        return ""
+    return (" [tokens routed otherwise than the plain prefill in some "
+            "layer: " + ", ".join(f"{k} {v}" for k, v in r["flips"].items())
+            + f"; kernel vs plain over the tokens routed alike "
+            f"{r['err_alike']:.3e}; aux loss kernel {r['aux'][0]:.6f} plain "
+            f"{r['aux'][1]:.6f}]")
 
 
 def say_lm(res, tag, name):
@@ -1655,13 +1832,14 @@ def say_lm(res, tag, name):
     limit = LM_RTOL[cfg.name]
     say(tag, f"{cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}, "
         f"vocab={cfg.vocab_size}, {res['n_params']:,} parameters, bfloat16 "
-        f"drawn in {res['init_s']:.2f} s), prefill {LM_PREFILL}, "
+        f"drawn in {res['init_s']:.2f} s), prefill {res['prefill']}, "
         f"‖Δ‖/‖ref‖ of logits | float32: {name} launches="
         f"{f32['launches']} {f32['routes'] or ''}, kernel vs plain "
         f"{f32['err'][0]:.3e} (max|Δ| "
         f"{f32['err'][1]:.3e}, limit {LM_F32_RTOL}), controls " + ", ".join(
             f"{k} {v[0]:.3e}" for k, v in f32["others"].items())
-        + f" (must exceed {limit}); decode vs prefill {LM_DECODE} "
+        + f" (must exceed {limit})" + say_flips(f32)
+        + f"; decode vs prefill {LM_DECODE} "
         + say_decode(f32["dec"]) + f", limit {LM_DECODE_RTOL[cfg.name]}; "
         "at full width and cut depth: " + ", ".join(
             f"{depth} layers {say_decode(d)}"
@@ -1670,18 +1848,40 @@ def say_lm(res, tag, name):
         f" | bfloat16: launches={bf16['launches']} {bf16['routes'] or ''}, "
         f"kernel vs plain "
         f"{bf16['err'][0]:.3e} (max|Δ| {bf16['err'][1]:.3e}, limit {limit})"
-        f"; the op's plain version in the kernel's place vs plain "
-        f"{bf16['others']['plain op'][0]:.3e} and vs the kernel prefill "
-        f"{bf16['others']['plain op'][1]:.3e}; controls " + ", ".join(
+        + ("; equal to use_kernel=False bit for bit" if bf16["same"] else "")
+        + ("; the op's plain version in the kernel's place vs plain "
+           f"{bf16['others']['plain op'][0]:.3e} and vs the kernel prefill "
+           f"{bf16['others']['plain op'][1]:.3e}"
+           if "plain op" in bf16["others"] else "")
+        + "; controls " + ", ".join(
             f"{k} {v[0]:.3e}" for k, v in bf16["others"].items()
             if k != "plain op")
-        + f" (must exceed {limit}); decode vs prefill "
+        + f" (must exceed {limit})" + say_flips(bf16) + "; decode vs prefill "
         + say_decode(bf16["dec"]) + " not gated"
-        f" | launcher batch 4 prompt 16 "
-        f"gen 16: tokens[0,:8]={res['launcher']['tokens'][0, :8].tolist()}"
-        f" | engine: {e['done']}/{ENGINE['requests']} requests complete in "
+        + (" | launcher not run" if res["launcher"] is None else
+           " | launcher batch 4 prompt 16 gen 16: tokens[0,:8]="
+           f"{res['launcher']['tokens'][0, :8].tolist()}")
+        + f" | engine: {e['done']}/{ENGINE['requests']} requests complete in "
         f"{e['steps']} steps, occupancy {e['occupancy']:.3f}, alone == "
-        f"together: {e['same']}")
+        f"together: {e['same']}"
+        + ("" if res["peak_gb"] is None else
+           f" | peak memory {res['peak_gb']:.2f} GB"))
+
+
+def say_lm_times(r):
+    """One model's prefill, profile, launcher and engine times."""
+    tok = r["prefill"][0] * r["prefill"][1]
+    served = "launcher not run" if r["launcher"] is None else (
+        f"launcher decode batch 4: {r['launcher']['decode_tok_s']:.1f} tok/s "
+        f"(its token-by-token prompt prefill "
+        f"{r['launcher']['prefill_s'] * 1e3:.1f} ms)")
+    return (f"{r['cfg'].name} prefill {r['prefill']}: kernel "
+            f"{r['kernel_s'] * 1e3:.2f} ms ({tok / r['kernel_s']:.0f} "
+            f"tok/s), plain {r['plain_s'] * 1e3:.2f} ms "
+            f"({tok / r['plain_s']:.0f} tok/s); {say_profile(r['profile'])}"
+            f"; {served}; engine "
+            f"{r['engine']['tokens'] / r['engine']['wall']:.1f} tok/s"
+            f" ({r['engine']['steps']} steps in {r['engine']['wall']:.2f} s)")
 
 
 def flash_times(device, gen):
@@ -1717,6 +1917,58 @@ def flash_times(device, gen):
                 tflops={name: flops / t / 1e9 for name, t in (
                     ("tc", ms), ("simt", simt_ms), ("sdpa", library_ms),
                     ("plain", plain_ms))})
+
+
+def flash_times_at(device, gen, B, S, H, Hkv, D):
+    """The tc kernel at a served prefill shape (bfloat16, causal), by CUDA
+    events in turns with ``F.scaled_dot_product_attention`` (tc, SDPA, tc;
+    ``enable_gqa`` where Hkv < H; a yardstick only), and its bound: the
+    true work at D, each of q, k, v read once and o written once.  The
+    kernel pads D to its 64-column panels (``issued_gflop``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel
+    q = torch.randn(B, S, H, D, generator=gen, device=device)
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=device)
+            for _ in range(2))
+    q, k, v = (a.to(torch.bfloat16) for a in (q, k, v))
+    check(kernel.route(q, k, v) == "tc", f"phase 16: ({B}, {S}, {H}, {Hkv}, "
+          f"{D}) does not take the tc route")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    gqa = {"enable_gqa": True} if Hkv < H else {}
+    tc = [cuda_time_ms(lambda: kernel.launch(q, k, v, True, "tc"), reps=20)]
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, **gqa), reps=20)
+    tc.append(cuda_time_ms(lambda: kernel.launch(q, k, v, True, "tc"),
+                           reps=20))
+    pairs = S * (S + 1) // 2
+    flops = 2 * 2 * B * H * D * pairs               # QKᵀ and PV, causal
+    kD = -(-D // 64) * 64
+    nbytes = 2 * B * S * D * (2 * H + 2 * Hkv)       # q, o and k, v in bf16
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / BF16_FLOPS * 1e3
+    ms = sum(tc) / len(tc)
+    return dict(shape=(B, S, H, Hkv, D), ms=ms, tc_ms=tc,
+                library_ms=library_ms, bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                t_bytes=t_bytes, t_flops=t_flops, gflop=flops / 1e9,
+                issued_gflop=2 * 2 * B * H * kD * pairs / 1e9,
+                mb=nbytes / 1e6, tflops=flops / ms / 1e9,
+                sdpa_tflops=flops / library_ms / 1e9)
+
+
+def say_flash_at(t):
+    """One served shape's line of phase 16."""
+    return (f"flash_attention {t['shape']} bfloat16 causal, tc in turns "
+            f"with SDPA: {t['tc_ms'][0]:.4f} / {t['tc_ms'][1]:.4f} ms "
+            f"({t['tflops']:.1f} TFLOP/s, {t['bound_ms'] / t['ms'] * 100:.1f}"
+            f" % of the bound), F.scaled_dot_product_attention "
+            f"{t['library_ms']:.4f} ms ({t['sdpa_tflops']:.1f} TFLOP/s); "
+            f"bound {t['bound_ms']:.4f} ms ({t['gflop']:.1f} GFLOP: "
+            f"operations {t['t_flops']:.4f} ms; {t['mb']:.1f} MB: bytes "
+            f"{t['t_bytes']:.4f} ms; the kernel issues {t['issued_gflop']:.1f}"
+            f" GFLOP, so at most {t['gflop'] / t['issued_gflop'] * 100:.1f} "
+            "% of the bound)")
 
 
 def wkv_times(device, gen, previous=None):
@@ -2608,6 +2860,15 @@ def zeroed(op):
     return fn
 
 
+def reversed_sequence(op):
+    """A replacement of an attention layer whose output (B, S, d) has its
+    sequence reversed (a layout fault of the sequence axis)."""
+    def fn(*args, **kw):
+        out = op(*args, **kw)
+        return (out[0].flip(1),) + tuple(out[1:])
+    return fn
+
+
 def swapped(op):
     """A replacement of a kernel op whose output has its sequence and head
     axes swapped (the layout fault of a transposed output)."""
@@ -2633,6 +2894,7 @@ def main(argv=None) -> None:
                          "timed in turns with this checkout's")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on an NVIDIA GPU")
@@ -2877,8 +3139,8 @@ def main(argv=None) -> None:
 
     # 16. times
     t16 = flash_times(device, gen)
+    fa16 = [flash_times_at(device, gen, *shape) for shape in FA_SERVED]
     w16 = wkv_times(device, gen, previous.get("rwkv_wkv"))
-    tok = LM_PREFILL[0] * LM_PREFILL[1]
     tf = t16["tflops"]
     say("16 times", f"[{card}] flash_attention (4, 2048, 20, 128) bfloat16 "
         f"causal, in turns: tc kernel {t16['tc_ms'][0]:.4f} / "
@@ -2899,17 +3161,9 @@ def main(argv=None) -> None:
         f"{w16['gflop']:.2f} GFLOP at 5N² a step: operations "
         f"{w16['t_flops']:.4f} ms; {w16['mb']:.1f} MB: bytes "
         f"{w16['t_bytes']:.4f} ms), plain scan {w16['plain_ms']:.4f} ms, "
-        f"wkv_chunked {w16['chunked_ms']:.4f} ms | " + " | ".join(
-            f"{r['cfg'].name} prefill {LM_PREFILL}: kernel "
-            f"{r['kernel_s'] * 1e3:.2f} ms ({tok / r['kernel_s']:.0f} "
-            f"tok/s), plain {r['plain_s'] * 1e3:.2f} ms "
-            f"({tok / r['plain_s']:.0f} tok/s); {say_profile(r['profile'])}"
-            f"; launcher decode batch 4: "
-            f"{r['launcher']['decode_tok_s']:.1f} tok/s (its token-by-token "
-            f"prompt prefill {r['launcher']['prefill_s'] * 1e3:.1f} ms); "
-            f"engine {r['engine']['tokens'] / r['engine']['wall']:.1f} tok/s"
-            f" ({r['engine']['steps']} steps in {r['engine']['wall']:.2f} s)"
-            for r in (s14, s15)))
+        f"wkv_chunked {w16['chunked_ms']:.4f} ms | "
+        + " | ".join(say_flash_at(t) for t in fa16) + " | "
+        + " | ".join(say_lm_times(r) for r in (s14, s15)))
 
     # 17. a batch of hypergradients as one batched solve
     t_phase = time.perf_counter()
@@ -3259,6 +3513,31 @@ def main(argv=None) -> None:
         f"{s24['auto_mesh']}")
     say("24 time", f"{time.perf_counter() - t_phase:.1f} s")
 
+    # 25. granite-moe-3b-a800m, 26. zamba2-7b, 27. deepseek-v2-236b
+    from repro_torch.models import layers as model_layers
+    fam = {}
+    for arch, spec in FAMILIES.items():
+        t_phase = time.perf_counter()
+        tag = spec["phase"]
+        shape = dict(layers=spec["layers"], prefill=spec["prefill"],
+                     launcher=spec["launcher"])
+        if spec["launches"]:
+            res = phase_lm(device, gen, arch, args.seed, fa_ops,
+                           "flash_attention", attention_ref, **shape)
+        else:      # MLA never reaches the kernel: the controls act on it
+            res = phase_lm(device, gen, arch, args.seed, model_layers,
+                           "mla_apply", None, controls={
+                               "zeroed output": zeroed,
+                               "reversed sequence": reversed_sequence},
+                           **shape)
+        check_lm(res, "flash_attention", spec["launches"], tag,
+                 {"bfloat16": "tc", "float32": "simt"})
+        say_lm(res, f"{tag} {arch}", "flash_attention")
+        say(f"{tag} times", f"[{card}] " + say_lm_times(res))
+        say(f"{tag} time", f"{time.perf_counter() - t_phase:.1f} s")
+        fam[arch] = res
+
+    say("total", f"{time.perf_counter() - t_start:.1f} s")
     launches = s4["launches"] + s5["launches"] + s6["fwd"] + s6["bwd"] \
         + s7["launches"] + s17["grad"]["launches"] \
         + s17["jvp"]["launches"] + run17["launches"] + s19["launches"] \
@@ -3276,7 +3555,8 @@ def main(argv=None) -> None:
         "library_ms": None, "previous_ms": t11["previous_ms"]}, {
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
         "replaces": FA_REPLACES,
-        "launches": s14["bf16"]["routes"]["tc"],
+        "launches": s14["bf16"]["routes"]["tc"] + sum(
+            r["bf16"]["routes"]["tc"] for r in fam.values()),
         "max_abs_err": err12, "ms": t16["ms"], "plain_ms": t16["plain_ms"],
         "bound_ms": t16["bound_ms"], "bound_by": t16["bound_by"],
         "library_ms": t16["library_ms"], "previous_ms": t16["simt_ms"]}, {

@@ -10,10 +10,10 @@ what ``repro.runtime.WarmStartCache.save`` wrote).
 Model weights cross with :func:`params_from_numpy` and
 :func:`params_to_numpy`.  The JAX pytree and the port's parameter dict
 have the same names (``embed/tok``, ``blocks/attn/w_q``, …) and the same
-``(d_in, d_out)`` weight layout; the only change is that the JAX
-``blocks`` subtree stacks the layers on a leading L axis and the port keeps
-a list of per-layer dicts.  bfloat16 arrays reach numpy as
-``ml_dtypes.bfloat16``, which ``torch`` does not read: they are recognised
+``(d_in, d_out)`` weight layout (MoE expert stacks (E, d, f) included);
+the only change is that the JAX ``blocks`` subtree stacks the layers on a
+leading L axis and the port keeps a list of per-layer dicts.  bfloat16
+arrays reach numpy as ``ml_dtypes.bfloat16``, which ``torch`` does not read: they are recognised
 by their dtype's name and their bits reinterpreted (``view`` as 16-bit
 integers, then as ``torch.bfloat16``), without importing ``ml_dtypes``.
 """
@@ -54,17 +54,24 @@ def _leaf_to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+# the subtrees of every model's parameters (the hybrid adds shared_attn)
+_SUBTREES = ("embed", "blocks", "final_norm")
+
+
 def params_from_numpy(tree, cfg, device=None):
     """The JAX package's parameter pytree of ``cfg``, given as numpy arrays
     (``jax.tree_util.tree_map(np.asarray, params)``), as the port's
     parameters on ``device`` (default ``cuda``), every leaf keeping its
-    dtype."""
-    from repro_torch.models.model import check_supported
-    check_supported(cfg)
+    dtype (the float32 router of a bfloat16 MoE model stays float32).
+    ``blocks`` is unstacked into per-layer dicts (stacked expert leaves
+    (L, E, ...) become (E, ...) a layer); the hybrid family's
+    ``shared_attn`` (one weight set, not stacked) crosses as it is."""
     dev = _device.resolve(device)
-    extra = set(tree) - {"embed", "blocks", "final_norm"}
-    if extra:
-        raise ValueError(f"params_from_numpy: unexpected subtrees {extra}")
+    want = _SUBTREES + (("shared_attn",) if cfg.family == "hybrid"
+                        else ())
+    if set(tree) != set(want):
+        raise ValueError(f"params_from_numpy: {cfg.name} has the subtrees "
+                         f"{sorted(want)}; got {sorted(tree)}")
 
     def conv(t):
         return pytree.tree_map(lambda a: _leaf_to_tensor(a, dev), t)
@@ -74,18 +81,18 @@ def params_from_numpy(tree, cfg, device=None):
         raise ValueError(f"params_from_numpy: blocks stacked to depths "
                          f"{sorted(depths)}, {cfg.name} has "
                          f"{cfg.num_layers} layers")
-    return {"embed": conv(tree["embed"]),
-            "blocks": [conv(pytree.tree_map(lambda a: a[i], tree["blocks"]))
-                       for i in range(cfg.num_layers)],
-            "final_norm": conv(tree["final_norm"])}
+    return {name: [conv(pytree.tree_map(lambda a: a[i], tree[name]))
+                   for i in range(cfg.num_layers)] if name == "blocks"
+            else conv(tree[name]) for name in want}
 
 
 def params_to_numpy(params, bfloat16=None):
     """The port's parameters as the JAX package's pytree of numpy arrays
-    (``blocks`` stacked on a leading L axis).  bfloat16 tensors come back
-    as arrays of the numpy dtype ``bfloat16`` when one is given (for
-    example ``jax.numpy.bfloat16``: the bits are carried over exactly),
-    else widened to float32 (also exact)."""
+    (``blocks`` stacked on a leading L axis; ``shared_attn``, where the
+    model has one, as it is).  bfloat16 tensors come back as arrays of the
+    numpy dtype ``bfloat16`` when one is given (for example
+    ``jax.numpy.bfloat16``: the bits are carried over exactly), else
+    widened to float32 (also exact)."""
     def leaf(t):
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -97,6 +104,5 @@ def params_to_numpy(params, bfloat16=None):
     spec = pytree.tree_flatten(params["blocks"][0])[1]
     layers = zip(*(pytree.tree_flatten(b)[0] for b in params["blocks"]))
     blocks = pytree.tree_unflatten([torch.stack(ls) for ls in layers], spec)
-    return {"embed": pytree.tree_map(leaf, params["embed"]),
-            "blocks": pytree.tree_map(leaf, blocks),
-            "final_norm": pytree.tree_map(leaf, params["final_norm"])}
+    return {name: pytree.tree_map(leaf, blocks if name == "blocks"
+                                  else params[name]) for name in params}

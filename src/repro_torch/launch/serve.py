@@ -8,9 +8,10 @@ launcher)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
         --smoke --batch 4 --prompt-len 16 --gen 16 [--device cpu]
 
-Parameters and prompts are drawn from ``--seed`` on the device.  The
-dense and RWKV-6 families are served; MoE, MLA and the hybrid family raise
-``NotImplementedError`` (ROADMAP A.12), encoder-only archs exit.
+Parameters and prompts are drawn from ``--seed`` on the device.  Every
+decoder family is served: dense (and the ``vlm`` stub frontend), MoE with
+GQA (``granite-moe-3b-a800m``) or MLA (``deepseek-v2-236b``) attention,
+RWKV-6 and the Mamba-2 hybrid (``zamba2-7b``); encoder-only archs exit.
 
 Solve service (two traffic waves — the second replays the first, so the
 warm-start cache hit rate and the scheduler metrics are exercised end to

@@ -1,8 +1,8 @@
-"""Model zoo of the port: dense GQA transformers and RWKV-6.
+"""Model zoo of the port: dense GQA transformers, MoE (GQA or MLA
+attention), RWKV-6 and the Mamba-2 hybrid.
 
-Counterpart of ``repro.models`` for the families the port serves so far;
-``loss_fn`` and ``init_params_abstract`` come with the training slice, MoE,
-MLA and Mamba-2 with theirs (ROADMAP A.12).
+Counterpart of ``repro.models``; ``loss_fn`` and ``init_params_abstract``
+come with the training slice (ROADMAP A.12b).
 """
 from repro_torch.models.model import (init_params, forward, init_decode_state,
                                       decode_step, DecodeState)

@@ -1,7 +1,8 @@
 """Shared neural layers of the port's model zoo.
 
-Counterpart of ``repro/models/layers.py`` (everything but MLA, which comes
-with the MoE/MLA slice, ROADMAP A.12).  Functional style, as the JAX
+Counterpart of ``repro/models/layers.py``: norms, RoPE and M-RoPE, the
+MLPs, GQA attention and DeepSeek-V2's MLA (multi-head latent attention
+with a compressed latent cache).  Functional style, as the JAX
 package: each layer is ``*_init(generator, cfg, ..., device) -> params``
 (a dict of tensors) plus ``apply(params, x, ...) -> y``.  Weights keep the
 JAX ``(d_in, d_out)`` layout, so ``x @ w`` needs no transpose and
@@ -13,7 +14,7 @@ rotates in float32 and casts back, and both attention paths (``_sdpa`` for
 prefill, ``_decode_sdpa`` against a cache) take logits, softmax and the
 weighted sum in float32 and cast to q's type.
 
-Attention's inner product goes through the flash-attention op
+GQA attention's inner product goes through the flash-attention op
 (``repro_torch.kernels.flash_attention``: the hand-written Hopper kernel on
 CUDA tensors) with ``use_kernel=True``, else through ``_sdpa``, which is
 that op's plain version (``kernels/flash_attention/ref.attention_ref``).
@@ -254,7 +255,7 @@ def attention_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
 
 def _scatter_cache(cache: torch.Tensor, new: torch.Tensor,
                    index) -> torch.Tensor:
-    """cache: (B, Smax, Hkv, D); new: (B, s, Hkv, D) written at ``index``
+    """cache: (B, Smax, ...); new: (B, s, ...) written at ``index``
     in place.  The start is clamped to [0, Smax − s], as
     ``lax.dynamic_update_slice`` clamps it.  Returns ``cache``."""
     s, smax = new.shape[1], cache.shape[1]
@@ -288,6 +289,118 @@ def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
     dev = _device.resolve(device)
     return (torch.zeros(shape, dtype=dtype, device=dev),
             torch.zeros(shape, dtype=dtype, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg: ArchConfig, device=None) -> Params:
+    """With ``q_lora_rank`` the query goes through a low-rank path
+    (``w_dq`` → ``q_norm`` → ``w_uq``), else through ``w_q``; keys and
+    values through the compressed latent (``w_dkv`` → ``kv_norm`` →
+    ``w_uk`` / ``w_uv``) plus one shared rope key of width dr."""
+    d, dt = cfg.d_model, torch_dtype(cfg)
+    H = cfg.num_heads
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank or 0
+    dr, dn, dv = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
+    p = {}
+    if r_q:
+        p["w_dq"] = dense_init(gen, d, r_q, dt, device)
+        p["q_norm"] = rmsnorm_init(r_q, dt, device)
+        p["w_uq"] = dense_init(gen, r_q, H * (dr + dn), dt, device)
+    else:
+        p["w_q"] = dense_init(gen, d, H * (dr + dn), dt, device)
+    p["w_dkv"] = dense_init(gen, d, r_kv + dr, dt, device)  # latent + rope k
+    p["kv_norm"] = rmsnorm_init(r_kv, dt, device)
+    p["w_uk"] = dense_init(gen, r_kv, H * dn, dt, device)
+    p["w_uv"] = dense_init(gen, r_kv, H * dv, dt, device)
+    p["w_o"] = dense_init(gen, H * dv, d, dt, device)
+    return p
+
+
+def mla_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
+              positions: Optional[torch.Tensor] = None,
+              kv_cache: Optional[Tuple] = None,
+              cache_index: Optional[int] = None):
+    """MLA attention.  Returns (out, new_cache).
+
+    The cache holds the *compressed* latent and the shared rope key:
+    (latent (B, Smax, r_kv), k_rope (B, Smax, dr)).  As in
+    ``attention_apply``, the new positions are written at ``cache_index``
+    (clamped as ``lax.dynamic_update_slice`` clamps) **in place** into the
+    given cache tensors, and the decode mask is a length mask only.
+    Logits, softmax and the weighted sum are float32, cast once to x's
+    type.  There is no ``use_kernel``: MLA never reaches the
+    flash-attention op, as in the reference."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    dr, dn, dv = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
+    r_kv = cfg.kv_lora_rank
+    f32 = torch.float32
+
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        if cache_index is not None:
+            positions = positions + int(cache_index)
+
+    if "w_dq" in params:
+        q_lat = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
+        q = q_lat @ params["w_uq"]
+    else:
+        q = x @ params["w_q"]
+    q = q.reshape(B, S, H, dr + dn)
+    q_rope, q_nope = q[..., :dr], q[..., dr:]
+    cos, sin = rope_freqs(dr, cfg.rope_theta, positions)
+    q_rope = apply_rope(q_rope, cos, sin)
+
+    dkv = x @ params["w_dkv"]
+    latent = rmsnorm(params["kv_norm"], dkv[..., :r_kv], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., r_kv:][:, :, None, :], cos, sin)[:, :, 0]
+
+    if kv_cache is not None:
+        c_lat, c_kr = kv_cache
+        _scatter_cache(c_lat, latent, cache_index)
+        _scatter_cache(c_kr, k_rope, cache_index)
+        latent_full, k_rope_full = c_lat, c_kr
+        valid = int(cache_index) + S
+        new_cache = (c_lat, c_kr)
+    else:
+        latent_full, k_rope_full = latent, k_rope
+        valid = None
+        new_cache = None
+
+    Sk = latent_full.shape[1]
+    k_nope = (latent_full @ params["w_uk"]).reshape(B, Sk, H, dn)
+    v = (latent_full @ params["w_uv"]).reshape(B, Sk, H, dv)
+
+    scale = 1.0 / math.sqrt(dr + dn)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.to(f32),
+                           k_nope.to(f32))
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.to(f32),
+                             k_rope_full.to(f32))) * scale
+    keys = torch.arange(Sk, device=x.device)
+    if valid is None:
+        mask = keys[None, :] <= torch.arange(S, device=x.device)[:, None]
+    else:
+        mask = keys < valid
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(f32))
+    out = out.reshape(B, S, H * dv).to(x.dtype) @ params["w_o"]
+    return out, new_cache
+
+
+def make_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None):
+    """Zero (latent (batch, max_len, r_kv), k_rope (batch, max_len, dr))
+    caches on ``device`` (default ``cuda``)."""
+    dev = _device.resolve(device)
+    return (torch.zeros(batch, max_len, cfg.kv_lora_rank, dtype=dtype,
+                        device=dev),
+            torch.zeros(batch, max_len, cfg.qk_rope_head_dim, dtype=dtype,
+                        device=dev))
 
 
 # ---------------------------------------------------------------------------

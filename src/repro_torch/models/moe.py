@@ -1,0 +1,182 @@
+"""Mixture-of-Experts layer (Granite-MoE and DeepSeek-V2 styles).
+
+Counterpart of ``repro/models/moe.py``.  Dense dispatch runs every expert
+on every token and the router's top-k weights gate the contributions; it
+is the one the serve paths take.  Two capacity-bounded sparse dispatches
+compute the same function for the tokens their capacity keeps: by gather
+and scatter-add (``moe_apply_sparse_gather``, what ``forward``'s
+``moe_dispatch="sparse"`` selects) and by one-hot dispatch and combine
+products (``moe_apply_sparse``).
+
+DeepSeek-V2 details: shared experts (always on), top-k over the routed
+experts, the Switch-style auxiliary load-balancing loss.
+
+Layout: the experts are stacked (E, d, f) as in the reference, and the
+expert products are batched over E (``torch.matmul`` of the (N, d) tokens
+against the (E, d, f) stack), so no copy of a weight stack is made; the
+down-projection contracts (e, f) jointly, as the reference's
+``"bsef,efd->bsd"`` does.  The router is float32 in a bfloat16 model.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.models.layers import dense_init, torch_dtype
+
+Params = Dict[str, Any]
+
+__all__ = ["moe_init", "moe_apply_dense", "moe_apply_sparse_gather",
+           "moe_apply_sparse"]
+
+
+def moe_init(gen, cfg: ArchConfig, device=None) -> Params:
+    """Router (d, E) float32; expert stacks (E, d, f) and (E, f, d) in the
+    config's type, standard normal × 1/√fan-in; shared experts as one
+    SwiGLU MLP of width f × num_shared_experts."""
+    m = cfg.moe
+    d, dff = cfg.d_model, m.expert_d_ff
+    dt = torch_dtype(cfg)
+    E = m.num_experts
+
+    def stack(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (w * (1.0 / math.sqrt(fan_in))).to(dt)
+
+    p = {"router": dense_init(gen, d, E, torch.float32, device),
+         "w_gate": stack((E, d, dff), d),
+         "w_up": stack((E, d, dff), d),
+         "w_down": stack((E, dff, d), dff)}
+    if m.num_shared_experts:
+        sdff = dff * m.num_shared_experts
+        p["shared"] = {"w_gate": dense_init(gen, d, sdff, dt, device),
+                       "w_up": dense_init(gen, d, sdff, dt, device),
+                       "w_down": dense_init(gen, sdff, d, dt, device)}
+    return p
+
+
+def _router_probs(params: Params, m: MoEConfig, x: torch.Tensor):
+    """Returns (top-k gates (..., E) dense-masked and renormalised, aux)."""
+    logits = x.to(torch.float32) @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, m.top_k, dim=-1)
+    topv = topv / topv.sum(dim=-1, keepdim=True)       # renormalise top-k
+    gates = torch.zeros_like(probs).scatter_(-1, topi, topv)
+    # Switch-style load balancing: E * Σ_e f_e · p̄_e
+    E = probs.shape[-1]
+    frac_routed = (gates.reshape(-1, E) > 0).to(torch.float32).mean(dim=0)
+    mean_prob = probs.reshape(-1, E).mean(dim=0)
+    aux = E * torch.sum(frac_routed * mean_prob)
+    return gates, aux
+
+
+def _shared(params: Params, x: torch.Tensor) -> torch.Tensor:
+    sp = params["shared"]
+    return (F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])) @ sp["w_down"]
+
+
+def _experts(params: Params, xe: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert on its rows: xe (E, n, d) or (n, d), shared
+    by all experts -> (E, n, f)."""
+    return F.silu(torch.matmul(xe, params["w_gate"])) \
+        * torch.matmul(xe, params["w_up"])
+
+
+def moe_apply_dense(params: Params, cfg: ArchConfig,
+                    x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense-dispatch MoE: out = Σ_e gate_e · FFN_e(x) (+ shared experts).
+    Returns (out (B, S, d), aux)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, N = m.num_experts, B * S
+    gates, aux = _router_probs(params, m, x)              # (B, S, E)
+    h = _experts(params, x.reshape(N, d))                 # (E, N, f)
+    # gate before the down-projection, which contracts (e, f) jointly
+    h = h * gates.reshape(N, E).T.to(x.dtype)[..., None]
+    f = h.shape[-1]
+    out = h.transpose(0, 1).reshape(N, E * f) \
+        @ params["w_down"].reshape(E * f, d)
+    out = out.reshape(B, S, d)
+    if m.num_shared_experts:
+        out = out + _shared(params, x)
+    return out, aux
+
+
+def _capacity(capacity_factor: float, N: int, k: int, E: int) -> int:
+    return max(1, int(capacity_factor * N * k / E))
+
+
+def moe_apply_sparse_gather(params: Params, cfg: ArchConfig,
+                            x: torch.Tensor, capacity_factor: float = 2.0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-bounded sparse dispatch by gather and scatter-add.
+
+    Per expert: its token ids are the first ``cap`` rows of a stable sort
+    of the keep mask (kept tokens first, in token order); the (E, cap, d)
+    gather runs the expert FFNs batched over E, and the gated outputs are
+    added back into their tokens (``index_add_``; a slot past the kept
+    tokens adds zeros).  Tokens beyond an expert's capacity are dropped
+    from it.  Compute scales with E·cap ≈ cf·k·N instead of E·N.
+    """
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k = m.num_experts, m.top_k
+    N = B * S
+    xf = x.reshape(N, d)
+    gates, aux = _router_probs(params, m, x)
+    gflat = gates.reshape(N, E)
+
+    cap = _capacity(capacity_factor, N, k, E)
+    active = gflat > 0
+    pos = torch.cumsum(active.to(torch.int32), dim=0) - 1
+    keep = active & (pos < cap)
+    # stable sort of the inverted mask (torch sorts no bool: an int copy)
+    order = torch.argsort((~keep).to(torch.int8), dim=0, stable=True)
+    ids = order[:cap].T                                   # (E, cap)
+    valid = torch.take_along_dim(keep, order[:cap], dim=0).T
+
+    ye = _experts(params, xf[ids]) @ params["w_down"]     # (E, cap, d)
+    g_slot = torch.take_along_dim(gflat.T, ids, dim=1) \
+        * valid.to(gflat.dtype)                           # (E, cap)
+    contrib = (ye * g_slot[..., None].to(ye.dtype)).reshape(-1, d)
+    out = torch.zeros(N, d, dtype=x.dtype, device=x.device).index_add_(
+        0, ids.reshape(-1), contrib.to(x.dtype))
+    out = out.reshape(B, S, d)
+    if m.num_shared_experts:
+        out = out + _shared(params, x)
+    return out, aux
+
+
+def moe_apply_sparse(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                     capacity_factor: float = 2.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-bounded sparse dispatch by one-hot (N, E, cap) dispatch and
+    combine products.  Tokens beyond an expert's capacity are dropped
+    (the residual passes them through)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k = m.num_experts, m.top_k
+    N = B * S
+    xf = x.reshape(N, d)
+    gates, aux = _router_probs(params, m, x)
+    gflat = gates.reshape(N, E)
+
+    cap = _capacity(capacity_factor, N, k, E)
+    active = (gflat > 0).to(torch.int32)
+    pos = torch.cumsum(active, dim=0) - 1                 # (N, E)
+    keep = (pos < cap) & (active > 0)
+    # one-hot of pos over cap slots (all zeros where pos is -1 or >= cap)
+    slots = torch.arange(cap, device=x.device)
+    disp_f = (keep[..., None] & (pos[..., None] == slots)).to(x.dtype)
+    xe = torch.einsum("nec,nd->ecd", disp_f, xf)          # (E, cap, d)
+    ye = _experts(params, xe) @ params["w_down"]          # (E, cap, d)
+    combine = disp_f * gflat[..., None].to(x.dtype)
+    out = torch.einsum("nec,ecd->nd", combine, ye).reshape(B, S, d)
+    if m.num_shared_experts:
+        out = out + _shared(params, x)
+    return out, aux

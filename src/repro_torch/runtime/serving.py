@@ -20,8 +20,11 @@ attention also sees the previous occupant's cache rows below it.  The
 port keeps this behaviour (ROADMAP §C) rather than change the result.
 
 The engine runs on its parameters' device; ``decode_step`` returns new
-cache tensors each tick and ``_merge_slot`` keeps the inactive slots'
-previous contents, as the reference's jitted step does.
+cache tensors each tick and ``_merge_slot``, mapped over the cache pytree
+(a tuple, or the hybrid's dict of tuples), keeps the inactive slots'
+previous contents, as the reference's jitted step does.  Like the
+reference, a slot handed to a new request keeps its previous occupant's
+recurrent state (RWKV, Mamba) and cache rows (KV, MLA latent).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as mdl
@@ -82,8 +86,9 @@ class ContinuousBatchingEngine:
         with torch.no_grad():
             logits, new_state = mdl.decode_step(self.params, self.cfg,
                                                 state, tokens)
-            merged = tuple(_merge_slot(n, o, slot_mask)
-                           for n, o in zip(new_state.caches, state.caches))
+            merged = pytree.tree_map(
+                lambda n, o: _merge_slot(n, o, slot_mask),
+                new_state.caches, state.caches)
         return logits, mdl.DecodeState(caches=merged, index=new_state.index)
 
     # -- request lifecycle ---------------------------------------------------
@@ -181,8 +186,9 @@ class ContinuousBatchingEngine:
 def _merge_slot(new, old, slot_mask):
     """Select per slot between updated and previous cache entries.
 
-    Cache leaves are stacked (L, B, ...): the slot axis is axis 1.
-    Leaves of fewer than two dimensions pass through."""
+    Cache leaves are stacked (L, B, ...) (the hybrid's shared-attention
+    caches (n_shared, B, ...)): the slot axis is axis 1.  Leaves of fewer
+    than two dimensions pass through."""
     if new.ndim < 2:
         return new
     shape = [1] * new.ndim

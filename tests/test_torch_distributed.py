@@ -351,10 +351,11 @@ def test_params_specs_equal_the_reference_leaf_for_leaf(arch, mesh_name):
 
 
 def test_port_parameters_take_the_layout_the_specs_assume():
-    """The dense and RWKV-6 families' own ``init_params`` (smoke sizes, on
-    the CPU) have the layout ``_port_layout`` builds from the JAX tree."""
+    """Every decoder family's own ``init_params`` (smoke sizes, on the
+    CPU) has the layout ``_port_layout`` builds from the JAX tree."""
     from repro_torch.models import model as tmodel
-    for arch in ("qwen1.5-4b", "rwkv6-3b"):
+    for arch in ("qwen1.5-4b", "rwkv6-3b", "granite-moe-3b-a800m",
+                 "deepseek-v2-236b", "zamba2-7b"):
         cfg = tconfigs.get(arch, smoke=True)
         params = tmodel.init_params(cfg, device="cpu")
         jparams = jmodel.init_params_abstract(jax.random.PRNGKey(0),

@@ -6,7 +6,9 @@ three MLP activations (GELU in its tanh form, as ``jax.nn.gelu``), GQA
 attention for prefill (with and without QKV bias, causal and not, through
 ``_sdpa`` and through the flash-attention op against the JAX kernel in
 interpret mode) and for decode against a cache (one token, and a chunk of
-three that the length-only mask leaves non-causal in both packages), the
+three that the length-only mask leaves non-causal in both packages), MLA
+(DeepSeek-V2's latent attention, on the low-rank and the plain query
+path) for prefill and for decode against its latent cache, the
 embeddings.
 """
 import dataclasses
@@ -182,6 +184,93 @@ def test_scatter_cache_clamps_like_dynamic_update_slice():
         want = JL._scatter_cache(cj, nj, jnp.int32(index))
         got = TL._scatter_cache(ct.clone(), nt, index)
         _close(got, want, atol=0)
+
+
+def _mla_cfg(q_lora):
+    """deepseek-v2-236b's smoke config in float32, with the low-rank query
+    path (q_lora_rank 48) or the plain ``w_q`` one (q_lora_rank 0)."""
+    return tuple(dataclasses.replace(c, q_lora_rank=48 if q_lora else 0)
+                 for c in _cfg("deepseek-v2-236b"))
+
+
+def _mla_params(cfg, rng):
+    d, H, r_kv = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    dr, dn, dv = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
+    qk = H * (dr + dn)
+    p = {"w_dkv": _np(rng, d, r_kv + dr, scale=d ** -0.5),
+         "kv_norm": {"scale": 1 + _np(rng, r_kv, scale=0.1)},
+         "w_uk": _np(rng, r_kv, H * dn, scale=r_kv ** -0.5),
+         "w_uv": _np(rng, r_kv, H * dv, scale=r_kv ** -0.5),
+         "w_o": _np(rng, H * dv, d, scale=(H * dv) ** -0.5)}
+    if cfg.q_lora_rank:
+        r_q = cfg.q_lora_rank
+        p.update(w_dq=_np(rng, d, r_q, scale=d ** -0.5),
+                 q_norm={"scale": 1 + _np(rng, r_q, scale=0.1)},
+                 w_uq=_np(rng, r_q, qk, scale=r_q ** -0.5))
+    else:
+        p["w_q"] = _np(rng, d, qk, scale=d ** -0.5)
+    return p
+
+
+@pytest.mark.parametrize("q_lora", [True, False], ids=["q_lora", "w_q"])
+def test_mla_prefill(q_lora):
+    jcfg, tcfg = _mla_cfg(q_lora)
+    rng = np.random.default_rng(8)
+    x = _np(rng, 2, 16, tcfg.d_model)
+    p = _mla_params(tcfg, rng)
+    assert ("w_dq" in p) == q_lora and ("w_q" in p) != q_lora
+    (xj, pj), (xt, pt) = _both((x, p))
+    want, none_j = JL.mla_apply(pj, jcfg, xj)
+    got, none_t = TL.mla_apply(pt, tcfg, xt)
+    assert none_j is None and none_t is None
+    assert got.shape == (2, 16, tcfg.d_model)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("S,index", [(1, 0), (1, 5), (3, 2), (2, 11)])
+@pytest.mark.parametrize("q_lora", [True, False], ids=["q_lora", "w_q"])
+def test_mla_decode_with_cache(q_lora, S, index):
+    """The latent cache (B, Smax, r_kv) and the rope-key cache (B, Smax,
+    dr) are written at ``index`` in place (clamped at the end, as
+    ``lax.dynamic_update_slice``: (2, 11) writes rows 10-11); one token,
+    and chunks that the length mask leaves non-causal in both packages."""
+    jcfg, tcfg = _mla_cfg(q_lora)
+    rng = np.random.default_rng(9)
+    Smax = 12
+    x = _np(rng, 2, S, tcfg.d_model)
+    cache = (_np(rng, 2, Smax, tcfg.kv_lora_rank),
+             _np(rng, 2, Smax, tcfg.qk_rope_head_dim))
+    (xj, pj, cj), (xt, pt, ct) = _both((x, _mla_params(tcfg, rng), cache))
+    want, (wl, wr) = JL.mla_apply(pj, jcfg, xj, kv_cache=cj,
+                                  cache_index=jnp.int32(index))
+    got, (gl, gr) = TL.mla_apply(pt, tcfg, xt, kv_cache=ct,
+                                 cache_index=index)
+    assert gl is ct[0] and gr is ct[1]          # written in place
+    _close(got, want)
+    _close(gl, wl)
+    _close(gr, wr)
+
+
+def _signature(tree):
+    """{name: (shape, dtype name)} of a nested dict of arrays or tensors."""
+    return {k: _signature(v) if isinstance(v, dict) else
+            (tuple(v.shape), str(v.dtype).split(".")[-1])
+            for k, v in tree.items()}
+
+
+def test_mla_init_and_cache_shapes():
+    for q_lora in (True, False):
+        jcfg, tcfg = (dataclasses.replace(c, dtype="bfloat16")
+                      for c in _mla_cfg(q_lora))
+        jp = JL.mla_init(jax.random.PRNGKey(0), jcfg)
+        tp = TL.mla_init(torch.Generator().manual_seed(0), tcfg,
+                         device="cpu")
+        assert _signature(tp) == _signature(jp)
+        assert ("w_dq" in tp) == q_lora
+    want = JL.make_mla_cache(jcfg, 2, 8)
+    got = TL.make_mla_cache(tcfg, 2, 8, device="cpu")
+    assert [tuple(t.shape) for t in got] == [w.shape for w in want]
+    assert all(t.dtype == torch.bfloat16 and not t.any() for t in got)
 
 
 @pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])

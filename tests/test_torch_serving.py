@@ -5,12 +5,14 @@ engine (``qwen1.5-4b-smoke``, bfloat16, parameters from the port's
 ``init_params`` on the CPU), and a continuous-admission case whose
 generated tokens equal the JAX engine's, token for token, for the same
 parameters (carried across with ``interop.params_from_numpy``) and the same
-prompts, in float32 for the dense and the RWKV-6 smoke configs.  That case
-admits requests into released slots mid-run, so it also holds the port to
-the reference's shared write index (ROADMAP §C).  The JAX test of compiled-
+prompts, in float32 for the dense, RWKV-6, MoE (GQA and MLA) and hybrid
+smoke configs.  That case admits requests into released slots mid-run, so
+it also holds the port to the reference's shared write index and its
+unreset recurrent and latent slot state (ROADMAP §C); the hybrid's dict of
+caches is merged per slot.  The JAX test of compiled-
 program reuse has no counterpart (PyTorch compiles nothing); instead every
 decode step is shown to take the full ``num_slots`` batch.  And the
-launcher's LM path on the CPU.
+launcher's LM path on the CPU for every decoder family.
 """
 import dataclasses
 
@@ -114,7 +116,9 @@ def test_isolation_between_slots(setup):
     assert alone == together
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "rwkv6-3b",
+                                  "granite-moe-3b-a800m", "deepseek-v2-236b",
+                                  "zamba2-7b"])
 def test_engine_tokens_equal_the_jax_engine(arch, monkeypatch):
     import jax
     from repro import configs as jcfgs
@@ -166,7 +170,28 @@ def test_merge_slot_selects_along_the_slot_axis():
     assert _merge_slot(scalar, torch.tensor(0), mask) is scalar
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "rwkv6-3b", "qwen2-vl-72b"])
+def test_engine_merges_the_hybrid_dict_cache_per_slot(monkeypatch):
+    """zamba2's caches are a dict of tuples ({"trunk": (conv, ssm),
+    "shared": (k, v)}); after a tick with only slot 0 active, every leaf
+    of slot 1 keeps its previous contents."""
+    cfg = configs.get("zamba2-7b", smoke=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = ContinuousBatchingEngine(cfg, params, num_slots=2, max_len=16)
+    before = {k: tuple(c.clone() for c in v)
+              for k, v in eng.state.caches.items()}
+    eng.submit(np.array([3, 4, 5], np.int32), max_new_tokens=2)
+    assert eng.step()
+    after = eng.state.caches
+    assert set(after) == {"trunk", "shared"}
+    for key in after:
+        for new, old in zip(after[key], before[key]):
+            assert torch.equal(new[:, 1], old[:, 1])       # slot 1 frozen
+    assert not torch.equal(after["trunk"][1][:, 0], before["trunk"][1][:, 0])
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "rwkv6-3b", "qwen2-vl-72b",
+                                  "granite-moe-3b-a800m", "deepseek-v2-236b",
+                                  "zamba2-7b"])
 def test_launcher_lm_path_on_cpu(arch, capsys):
     out = serve.main(["--arch", arch, "--smoke", "--batch", "2",
                       "--prompt-len", "5", "--gen", "4", "--device", "cpu"])
@@ -183,12 +208,12 @@ def test_launcher_lm_path_on_cpu(arch, capsys):
 
 
 def test_launcher_refuses_what_it_does_not_serve():
+    """An encoder-only arch and a missing --arch exit; every decoder family
+    is served (``test_launcher_lm_path_on_cpu``)."""
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu"])                   # no --arch
     with pytest.raises(SystemExit):
         serve.main(["--arch", "hubert-xlarge", "--smoke", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        serve.main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--arch", "qwen1.5-4b", "--smoke"])
