@@ -20,8 +20,10 @@ simplex-projection kernel (phases 9-11); and LM serving of ``qwen1.5-4b``
 and ``rwkv6-3b`` at full width and depth — the prefill step through the
 hand-written flash-attention and WKV kernels, the decode loop, the
 launcher and the continuous-batching engine (phases 12-16) — and of the
-MoE, hybrid and MLA families at full width (phases 25-27).  Each phase
-prints one line:
+MoE, hybrid and MLA families at full width (phases 25-27); LM training
+of ``qwen1.5-4b`` whole at full width, of its width at 2 layers against
+the CPU, and of ``examples/train_lm.py``'s 100 M model with checkpoints,
+resume and preemption (phase 28).  Each phase prints one line:
 
   1. card: name, device count, ``nvidia-smi`` name and power limit;
   2. build: the four kernel libraries are compiled from the repo's sources
@@ -297,9 +299,42 @@ prints one line:
      bit; the controls act on ``mla_apply`` (zeroed output, sequence
      reversed), above 5e-2; float32 decode against prefill (1, 64) within
      1e-5 and at 1 layer within 1e-5; the launcher (which runs the whole
-     config) is not run.
+     config) is not run;
+ 28. LM training on one card (no kernel on the path: the hand-written
+     kernels are forward only, as the reference's Pallas kernels, so the
+     train step runs the plain attention): (a) ``qwen1.5-4b`` whole at
+     full width and depth (3.95 B parameters, bf16, random weights from
+     ``--seed``), batches of (1, 4096) from ``SyntheticLMStream`` (the
+     sequence of the reference's ``train_4k`` cell, batch 1 of its 256),
+     the launcher's optimizer (AdamW, linear-warmup cosine, weight decay
+     0.01), remat ``"nothing"``, clip 1.0, 4 steps through ``train_loop``
+     with a ``StragglerMonitor``: every loss and gradient norm finite, the
+     parameters changed, 0 flash-attention and 0 WKV launches; printed:
+     the median step of steps 2-4, tokens/s, peak memory, one step under
+     ``torch.profiler`` (matrix products, the rest, the plain attention,
+     the device spans of the step's ranges, the optimizer update's among
+     them, and the busy share), one step under ``analysis.op_census``
+     with its product FLOPs within 1 % of the reckoning from the config's
+     shapes (``train_step_flops``; the census with its products left out
+     is the control) and the step's MFU; then the launcher in process
+     (``--arch qwen1.5-4b --steps 2 --batch 1 --seq 4096``) ending with
+     its ``done`` line; (b) the same width at 2 of its 40 layers, float32,
+     (2, 512): card against CPU on the same numpy parameters and batch
+     (the loss within 1e-5, each leaf's gradient within 1e-4 of its
+     norm), each remat policy against ``remat=False`` (1e-6, each
+     policy's peak memory printed), two microbatches against one (1e-5);
+     each limit's control is the same comparison with one label of the
+     batch changed; (c) ``examples/train_lm.py``'s ``--full-100m`` config
+     (12 layers, d 768, 12 / 4 heads, d_ff 2048, vocab 32,000, bf16) in
+     the port's loop: batch 8 × 128, 2 microbatches, remat off, 300 steps,
+     a ``CheckpointManager`` every 100 steps keeping 2: the last logged
+     loss below the first, a run resumed from step 200 and replayed to
+     300 within rtol 1e-4 of every logged loss (the reference's own
+     resume limit; the control: the losses one log entry off), a fresh run
+     preempted at its third step stops there and checkpoints step 3;
+     tokens/s and each part's seconds printed.
 
-Phases 17-27 each print their duration on a line of their own, and the
+Phases 17-28 each print their duration on a line of their own, and the
 script its total.  The run
 fails at once if ``REPRO_AUTOTUNE_CACHE`` is set: phases 3-20 hold every
 batched-CG launch to the kernel's rule, which only a cold tuning cache
@@ -313,7 +348,8 @@ batched_cg, ``ops.LAUNCHES_BY_LAYOUT``; for flash attention,
 launches it prints apart —
 phase 6's forward and backward each on their own, 10 for simplex_proj,
 each kernel prefill of 14 and 25-27 for flash_attention and of 15 for
-rwkv_wkv; the JSON line reports the bfloat16 ones, for flash attention
+rwkv_wkv, and 28's training loops for flash_attention and rwkv_wkv, which
+must read 0; the JSON line reports the bfloat16 ones, for flash attention
 the tc launches of 14, 25 and 26 summed, and adds the CUDA-core kernel's
 time as
 ``previous_ms``) and read just after.  ``previous_ms`` of batched_cg is
@@ -478,6 +514,23 @@ SWEEP_TIMING = dict(reps=20, replays=5)
 CENSUS_RTOL = 1e-2                 # phase 23: census against the reckoning
 # phase 24 (limits and their readings: PERF.md)
 DIST = dict(B=64, d=512, m=1024, reps=3)   # phase 4's ridge problems
+# phase 28: training.  (a) the whole model, a (1, 4096) batch: the
+# sequence of the reference's train_4k cell (src/repro/launch/shapes.py:33),
+# batch 1 of its 256 on one card; 4 steps, the launcher 2
+TRAIN_ARCH = "qwen1.5-4b"
+TRAIN_FULL = dict(batch=1, seq=4096, steps=4, lr=3e-3, launcher_steps=2)
+TRAIN_CUT = dict(layers=2, batch=2, seq=512)       # (b), float32
+LM100M = dict(config=dict(name="lm-100m", family="dense", num_layers=12,
+                          d_model=768, num_heads=12, num_kv_heads=4,
+                          d_ff=2048, vocab_size=32000),
+              steps=300, batch=8, seq=128, microbatches=2, every=100,
+              keep=2, log_every=20, lr=3e-3, warmup=20)   # (c)
+TRAIN_CPU_LOSS = 1e-5              # (b) card against CPU: the loss
+TRAIN_CPU_GRAD = 1e-4              # (b) ... each leaf's ‖Δ‖/‖grad‖
+REMAT_RTOL = 1e-6                  # (b) each remat policy against none
+MICRO_RTOL = 1e-5                  # (b) two microbatches against one
+RESUME_RTOL = 1e-4                 # (c) the reference's own resume limit
+                                   # (tests/test_runtime.py:300)
 SHARD_RTOL = 2 * CLOSED_RTOL       # phase 24 (b): sharded against single
 
 
@@ -2642,17 +2695,23 @@ def phase_autotune(device, gen, shapes, reps, replays):
     return res
 
 
+def block_matrix_params(cfg) -> int:
+    """The weight matrices of one dense block (attention and the MLP): the
+    parameters a matrix product reads."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+    return attn + (3 if cfg.mlp_activation == "silu" else 2) * d * cfg.d_ff
+
+
 def dense_matrix_params(cfg) -> tuple:
     """(non-embedding parameters, LM head parameters) of a dense config,
-    reckoned from its widths: attention with its biases, the MLP's
-    matrices, two norms a layer and the final norm."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    H, Hkv = cfg.num_heads, cfg.num_kv_heads
-    attn = 2 * d * H * hd + 2 * d * Hkv * hd
-    if cfg.qkv_bias:
-        attn += (H + 2 * Hkv) * hd
-    mlp = (3 if cfg.mlp_activation == "silu" else 2) * d * cfg.d_ff
-    return cfg.num_layers * (attn + mlp + 2 * d) + d, d * cfg.vocab_size
+    reckoned from its widths: the block's matrices, the attention's biases,
+    two norms a layer and the final norm."""
+    d = cfg.d_model
+    bias = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.resolved_head_dim \
+        if cfg.qkv_bias else 0
+    return (cfg.num_layers * (block_matrix_params(cfg) + bias + 2 * d) + d,
+            d * cfg.vocab_size)
 
 
 def phase_census(device, seed, arch, prefill_s):
@@ -2848,6 +2907,472 @@ def phase_distributed(device, gen, B, d, m, reps):
         if dist.is_initialized():
             dist.destroy_process_group()
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 28: LM training on one card
+# ---------------------------------------------------------------------------
+
+def train_batches(stream, start=0):
+    """``(step, batch)`` from ``start``, as the launcher's data iterator."""
+    step = start
+    while True:
+        yield step, stream.batch_at(step)
+        step += 1
+
+
+def train_step_flops(cfg, B, S) -> float:
+    """The matrix-product FLOPs of one remat ``"nothing"`` train step of a
+    dense model, reckoned from its shapes: each block's weight products
+    forward, recomputed in the backward and twice in the backward (the
+    input's and the weight's gradients), 8 · N · T, less the recompute of
+    the MLP's down projection, 2 · d · d_ff · T (non-reentrant
+    ``torch.utils.checkpoint`` stops recomputing once the backward's saved
+    tensors are back, and that product's output only feeds the residual
+    sum); the LM head forward and backward, 6 · d · V · T; the plain
+    attention's two products of 4 · B · H · S² · D a forward, four times
+    (forward, recompute, and twice that in the backward)."""
+    T = B * S
+    blocks = cfg.num_layers * T * (8.0 * block_matrix_params(cfg)
+                                   - 2.0 * cfg.d_model * cfg.d_ff)
+    head = 6.0 * cfg.d_model * cfg.vocab_size * T
+    attn = 16.0 * cfg.num_layers * B * cfg.num_heads * S * S \
+        * cfg.resolved_head_dim
+    return blocks + head + attn
+
+
+# the plain attention's own operations, forward (and recomputed) and in the
+# backward: its two products (einsum → bmm), the causal mask, the softmax
+ATTENTION_OPS = ("aten::einsum", "aten::softmax", "aten::_softmax",
+                 "aten::where", "BmmBackward", "SoftmaxBackward",
+                 "WhereBackward")
+# what the profiler reports beside the kernels, with device times of its
+# own: the train step's record_function ranges (their device spans) and
+# the host blocked on a full launch queue
+NOT_KERNELS = ("train_step/", "Command Buffer Full")
+
+
+def train_profile(step_fn, state, x, y, device):
+    """One train step under ``torch.profiler``: device ms of the matrix
+    products (by kernel name) and of everything else, of the plain
+    attention (the kernels launched under ``ATTENTION_OPS``, forward,
+    recompute and backward, its products included), the device spans of
+    the step's clip, compress and update ranges, the step's host-clock ms
+    and the busy share.  None when the
+    profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, x, y)
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kind = {"matrix products": 0.0, "other": 0.0}
+    spans = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        # the ranges of the main thread: the backward's kernels are launched
+        # from autograd's device thread, outside forward_backward's span
+        if ev.key in ("train_step/clip", "train_step/compress",
+                      "train_step/update"):
+            spans[ev.key[len("train_step/"):]] = us / 1e3
+        if any(ev.key.startswith(n) for n in NOT_KERNELS):
+            continue
+        kind = "matrix products" if any(
+            g in ev.key.lower() for g in GEMM_NAMES) else "other"
+        by_kind[kind] += us / 1e3
+    busy = sum(by_kind.values())
+    if busy == 0:
+        return None
+
+    def kernels_us(e):
+        if any(e.name.startswith(n) for n in NOT_KERNELS[1:]):
+            return 0.0
+        return sum(k.duration for k in e.kernels) + sum(
+            kernels_us(c) for c in e.cpu_children)
+
+    def attention_us(e):
+        if any(name in e.name for name in ATTENTION_OPS):
+            return kernels_us(e)
+        return sum(attention_us(c) for c in e.cpu_children)
+
+    roots = [e for e in prof.events() if e.device_type == DeviceType.CPU
+             and e.cpu_parent is None]
+    return dict(wall_ms=wall_ms, busy_ms=busy, by_kind=by_kind,
+                attention_ms=sum(attention_us(e) for e in roots) / 1e3,
+                spans=spans)
+
+
+def grads_rel(got, want) -> float:
+    """The largest ‖Δ‖/‖want‖ over the leaves of two gradient trees, on
+    the CPU in float32."""
+    import torch
+    from torch.utils import _pytree as pytree
+    worst = 0.0
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        worst = max(worst, float(torch.linalg.vector_norm(a - b)
+                                 / torch.linalg.vector_norm(b).clamp_min(
+                                     1e-30)))
+    return worst
+
+
+def phase_train(device, seed, arch, full, cut, lm100m, ckpt_dir):
+    """Phase 28: (a) ``arch`` trained whole at full width through
+    ``train_loop`` (the launcher's optimizer and schedule, remat
+    ``"nothing"``, clip 1.0), a profiled step, a census step, then the
+    launcher in process; (b) its full width at ``cut["layers"]`` layers in
+    float32: card against CPU, each remat policy against none, two
+    microbatches against one, each limit with a control (one label of the
+    batch changed); (c) ``examples/train_lm.py``'s ``--full-100m`` config
+    trained, checkpointed, resumed and preempted."""
+    import dataclasses
+    import io
+    import shutil
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import configs, interop
+    from repro_torch.analysis import op_census, roofline
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv_wkv import ops as wkv_ops
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.runtime import (PreemptionHandler, StragglerMonitor,
+                                     TrainStepConfig, make_train_state,
+                                     make_train_step, run_train_loop)
+    from repro_torch.runtime.train_loop import make_value_and_grad
+    res = {}
+    parts = res["parts_s"] = {}
+    t_part = time.perf_counter()
+
+    # (a) the whole model at full width
+    cfg = configs.get(arch)
+    B, S, steps = full["batch"], full["seq"], full["steps"]
+    optimizer = adamw(schedules.linear_warmup_cosine(
+        full["lr"], warmup=10, total=steps), weight_decay=0.01)
+    step_fn = make_train_step(cfg, optimizer, TrainStepConfig(
+        remat=True, remat_policy="nothing", clip_norm=1.0))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = make_train_state(cfg, optimizer, torch.Generator(
+        device=device).manual_seed(seed + 28), device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    watched = {"blocks/0/attn/w_q": lambda p: p["blocks"][0]["attn"]["w_q"],
+               "blocks/-1/mlp/w_down":
+                   lambda p: p["blocks"][-1]["mlp"]["w_down"],
+               "embed/tok": lambda p: p["embed"]["tok"]}
+    before = {k: get(state.params).clone() for k, get in watched.items()}
+    stream = SyntheticLMStream(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=S, global_batch=B,
+                                          seed=seed))
+    monitor = StragglerMonitor()
+    fa_ops.LAUNCHES, wkv_ops.LAUNCHES = 0, 0
+    state, hist = run_train_loop(step_fn, state, train_batches(stream),
+                                 num_steps=steps, monitor=monitor,
+                                 log_every=1)
+    res["launches"] = {"flash_attention": fa_ops.LAUNCHES,
+                       "rwkv_wkv": wkv_ops.LAUNCHES}
+    step_s = list(monitor.times[0])
+    res.update(
+        arch=arch, n_params=sum(t.numel() for t in
+                                pytree.tree_leaves(state.params)),
+        init_s=init_s, hist=hist, step_s=step_s,
+        median_s=sorted(step_s[1:])[len(step_s[1:]) // 2],
+        peak_gb=torch.cuda.max_memory_allocated(device) / 1e9
+        if device.type == "cuda" else None,
+        changed={k: not torch.equal(before[k], get(state.params))
+                 for k, get in watched.items()})
+    del before
+    res["tokens_s"] = B * S / res["median_s"]
+    x, y = stream.batch_at(steps)
+    res["profile"] = train_profile(step_fn, state, x, y, device)
+    x, y = stream.batch_at(steps + 1)
+    costs, census_s = timed(device, lambda: op_census.analyze_module(
+        step_fn, state, x, y))
+    want = train_step_flops(cfg, B, S)
+    nonemb, head = dense_matrix_params(cfg)
+    mfu = roofline.model_flops_train(nonemb + head, B * S) \
+        / (res["median_s"] * roofline.PEAK_FLOPS)
+    left = costs.flops - max(costs.flops_by_op.values(), default=0.0)
+    res["census"] = dict(
+        flops=costs.flops, want=want, rel=abs(costs.flops - want) / want,
+        control=abs(left - want) / want, by_op=dict(costs.flops_by_op),
+        bytes=costs.hbm_bytes, custom_calls=dict(costs.custom_calls),
+        census_s=census_s, mfu=mfu)
+    del state, step_fn
+    free(device)
+    parts["(a) train_loop, profile, census"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launched = train_launcher.main([
+            "--arch", arch, "--steps", str(full["launcher_steps"]),
+            "--batch", str(B), "--seq", str(S), "--seed", str(seed),
+            "--device", str(device)])
+    res["launcher"] = dict(out=out.getvalue(), history=launched["history"],
+                           step_s=launched["step_s"])
+    free(device)
+    parts["(a) launcher"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (b) full width, cut depth, float32: card against CPU, remat, microbatch
+    cfg32 = dataclasses.replace(cfg, num_layers=cut["layers"],
+                                dtype="float32")
+    params = init_params(cfg32, torch.Generator(device=device).manual_seed(
+        seed + 280), device=device)
+    host = interop.params_to_numpy(params)
+    cpu_params = interop.params_from_numpy(host, cfg32, device="cpu")
+    del host
+    rng = torch.Generator().manual_seed(seed + 281)
+    xb = torch.randint(0, cfg.vocab_size, (cut["batch"], cut["seq"]),
+                       generator=rng)
+    yb = torch.randint(0, cfg.vocab_size, (cut["batch"], cut["seq"]),
+                       generator=rng)
+    yc = yb.clone()          # the control: one label of the batch changed
+    yc[0, 0] = (yc[0, 0] + 1) % cfg.vocab_size
+
+    def grads(tcfg, p, xs, ys):
+        """(loss, gradients on the CPU, peak GB of the card's run)."""
+        on = pytree.tree_leaves(p)[0].device
+        if on.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(on)
+        loss, g = make_value_and_grad(cfg32, tcfg)(p, xs.to(on), ys.to(on))
+        peak = torch.cuda.max_memory_allocated(on) / 1e9 \
+            if on.type == "cuda" else None
+        return float(loss), pytree.tree_map(lambda t: t.cpu(), g), peak
+
+    plain = TrainStepConfig(remat=False)
+    l_ref, g_ref, peak_ref = grads(plain, params, xb, yb)
+    l_ctl, g_ctl, _ = grads(plain, params, xb, yc)
+    l_cpu, g_cpu, _ = grads(plain, cpu_params, xb, yb)
+    del cpu_params
+    b = dict(loss=l_ref, peak_gb={"remat=False": peak_ref},
+             cpu_loss=abs(l_ref - l_cpu) / abs(l_cpu),
+             cpu_grad=grads_rel(g_ref, g_cpu),
+             cpu_loss_control=abs(l_ctl - l_cpu) / abs(l_cpu),
+             cpu_grad_control=grads_rel(g_ctl, g_cpu))
+    del g_cpu
+    b["remat"] = {}
+    for policy in ("nothing", "dots", "dots_no_batch"):
+        l_r, g_r, peak = grads(TrainStepConfig(remat=True,
+                                               remat_policy=policy),
+                               params, xb, yb)
+        b["peak_gb"][policy] = peak
+        b["remat"][policy] = dict(loss=abs(l_r - l_ref) / abs(l_ref),
+                                  grad=grads_rel(g_r, g_ref))
+        del g_r
+    b["remat_control"] = max(abs(l_ctl - l_ref) / abs(l_ref),
+                             grads_rel(g_ctl, g_ref))
+    l_m, g_m, _ = grads(TrainStepConfig(remat=False, microbatches=2),
+                        params, xb, yb)
+    b["micro"] = dict(loss=abs(l_m - l_ref) / abs(l_ref),
+                      grad=grads_rel(g_m, g_ref),
+                      control=grads_rel(g_m, g_ctl))
+    res["cut"] = b
+    del params, g_ref, g_ctl, g_m
+    free(device)
+    parts["(b)"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (c) examples/train_lm.py --full-100m, in the port's loop
+    c = lm100m
+    cfg100 = ArchConfig(**c["config"])
+    opt100 = adamw(schedules.linear_warmup_cosine(
+        c["lr"], warmup=c["warmup"], total=c["steps"]), weight_decay=0.01)
+    step100 = make_train_step(cfg100, opt100, TrainStepConfig(
+        microbatches=c["microbatches"], remat=False))
+    stream100 = SyntheticLMStream(DataConfig(
+        vocab_size=cfg100.vocab_size, seq_len=c["seq"],
+        global_batch=c["batch"]))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def fresh():
+        return make_train_state(cfg100, opt100, torch.Generator(
+            device=device).manual_seed(seed), device=device)
+
+    fa_ops.LAUNCHES = 0
+    mgr = CheckpointManager(str(ckpt_dir / "run"), keep=c["keep"])
+    state, t_run = timed(device, lambda: run_train_loop(
+        step100, fresh(), train_batches(stream100), num_steps=c["steps"],
+        checkpoint_manager=mgr, checkpoint_every=c["every"],
+        monitor=StragglerMonitor(), log_every=c["log_every"]))
+    state, hist = state
+    del state
+    kept = mgr.all_steps()
+    parts["(c) run"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    resume_at = c["steps"] - c["every"]
+    target = fresh()
+    restored = mgr.restore(resume_at, target)
+    _, hist2 = run_train_loop(step100, restored,
+                              train_batches(stream100, resume_at),
+                              num_steps=c["every"],
+                              log_every=c["log_every"],
+                              start_step=resume_at)
+    del target, restored
+    parts["(c) resume"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    first = len(hist) - len(hist2)
+    same = [h["loss"] for h in hist[first:]]
+    resumed = [h["loss"] for h in hist2]
+    shifted = [h["loss"] for h in hist[first - 1:-1]]
+    handler = PreemptionHandler()
+    calls = {"n": 0}
+
+    def flag():
+        calls["n"] += 1
+        if calls["n"] == 3:
+            handler.preempt()
+        return handler()
+
+    mgr_p = CheckpointManager(str(ckpt_dir / "preempted"))
+    _, hist_p = run_train_loop(step100, fresh(), train_batches(stream100),
+                               num_steps=c["steps"], checkpoint_manager=mgr_p,
+                               checkpoint_every=10 ** 9,
+                               preemption_flag=flag, log_every=1)
+    res["lm100m"] = dict(
+        n_params=sum(t.numel() for t in
+                     pytree.tree_leaves(init_params(cfg100, device="meta"))),
+        first=hist[0]["loss"], last=hist[-1]["loss"], seconds=t_run,
+        tokens_s=c["steps"] * c["batch"] * c["seq"] / t_run, kept=kept,
+        resume_at=resume_at,
+        resume_rel=max(abs(a - b) / abs(b) for a, b in zip(resumed, same)),
+        resume_control=min(abs(a - b) / abs(b)
+                           for a, b in zip(resumed, shifted)),
+        logged=len(resumed), preempt_steps=len(hist_p),
+        preempt_saved=mgr_p.latest_step(), launches=fa_ops.LAUNCHES)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free(device)
+    parts["(c) preempt"] = time.perf_counter() - t_part
+    return res
+
+
+def check_train(r):
+    """The hard checks of phase 28 (see the module docstring)."""
+    for h in r["hist"]:
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+              f"phase 28 (a): step {h['step']:.0f} loss {h['loss']} "
+              f"grad_norm {h['grad_norm']}")
+    check(len(r["hist"]) == TRAIN_FULL["steps"], f"phase 28 (a): "
+          f"{len(r['hist'])} steps logged")
+    check(all(r["changed"].values()), f"phase 28 (a): parameters changed "
+          f"{r['changed']}")
+    check(r["launches"] == {"flash_attention": 0, "rwkv_wkv": 0},
+          f"phase 28 (a): kernel launches {r['launches']} in training")
+    c = r["census"]
+    check(c["rel"] <= CENSUS_RTOL < c["control"], f"phase 28 (a): census "
+          f"FLOPs {c['flops']:.6e} against {c['want']:.6e}: rel "
+          f"{c['rel']:.3e} (limit {CENSUS_RTOL}, control {c['control']:.3e})")
+    check(not c["custom_calls"], f"phase 28 (a): the census saw custom "
+          f"calls {c['custom_calls']}")
+    launched = r["launcher"]
+    check("[train] done" in launched["out"] and all(
+        math.isfinite(h["loss"]) for h in launched["history"]),
+        f"phase 28 (a): the launcher printed {launched['out'][-400:]!r}")
+    b = r["cut"]
+    check(b["cpu_loss"] <= TRAIN_CPU_LOSS < b["cpu_loss_control"],
+          f"phase 28 (b): card against CPU loss {b['cpu_loss']:.3e} (limit "
+          f"{TRAIN_CPU_LOSS}, control {b['cpu_loss_control']:.3e})")
+    check(b["cpu_grad"] <= TRAIN_CPU_GRAD < b["cpu_grad_control"],
+          f"phase 28 (b): card against CPU gradients {b['cpu_grad']:.3e} "
+          f"(limit {TRAIN_CPU_GRAD}, control {b['cpu_grad_control']:.3e})")
+    for policy, d in b["remat"].items():
+        check(max(d["loss"], d["grad"]) <= REMAT_RTOL < b["remat_control"],
+              f"phase 28 (b): remat {policy} against none: loss "
+              f"{d['loss']:.3e}, gradients {d['grad']:.3e} (limit "
+              f"{REMAT_RTOL}, control {b['remat_control']:.3e})")
+    m = b["micro"]
+    check(m["grad"] <= MICRO_RTOL < m["control"], f"phase 28 (b): two "
+          f"microbatches against one {m['grad']:.3e} (limit {MICRO_RTOL}, "
+          f"control {m['control']:.3e})")
+    e = r["lm100m"]
+    check(e["last"] < e["first"], f"phase 28 (c): loss {e['first']:.4f} → "
+          f"{e['last']:.4f}")
+    check(e["kept"] == [LM100M["steps"] - LM100M["every"], LM100M["steps"]],
+          f"phase 28 (c): checkpoints kept {e['kept']}")
+    check(e["logged"] > 0 and e["resume_rel"] <= RESUME_RTOL
+          < e["resume_control"], f"phase 28 (c): resumed losses "
+          f"{e['resume_rel']:.3e} from the run's (limit {RESUME_RTOL}, "
+          f"control {e['resume_control']:.3e})")
+    check(e["preempt_steps"] == 3 and e["preempt_saved"] == 3,
+          f"phase 28 (c): preempted at its third step, ran "
+          f"{e['preempt_steps']} steps and saved {e['preempt_saved']}")
+    check(e["launches"] == 0, f"phase 28 (c): {e['launches']} kernel "
+          "launches")
+
+
+def say_train(r, card):
+    p = r["profile"]
+    c = r["census"]
+    if p is None:
+        split = "device time not measured (the profiler saw none)"
+    else:
+        split = (f"profiled step {p['wall_ms']:.2f} ms, device busy "
+                 f"{p['busy_ms']:.2f} ms ({p['busy_ms'] / p['wall_ms'] * 100:.1f}"
+                 " %): " + ", ".join(f"{k} {v:.2f} ms"
+                                     for k, v in p["by_kind"].items())
+                 + f"; the plain attention (its products, mask and "
+                 f"softmax, forward, recompute and backward) "
+                 f"{p['attention_ms']:.2f} ms; device spans of the step's "
+                 "ranges: " + ", ".join(f"{k} {v:.2f} ms"
+                                        for k, v in p["spans"].items()))
+    say("28 train", f"[{card}] {r['arch']} whole ({r['n_params']} "
+        f"parameters, bf16) at ({TRAIN_FULL['batch']}, {TRAIN_FULL['seq']}),"
+        f" adamw + linear_warmup_cosine, remat 'nothing', clip 1.0: "
+        f"{len(r['hist'])} steps through train_loop, loss "
+        + ", ".join(f"{h['loss']:.4f}" for h in r["hist"]) + "; grad_norm "
+        + ", ".join(f"{h['grad_norm']:.4f}" for h in r["hist"])
+        + f"; step s " + ", ".join(f"{t:.4f}" for t in r["step_s"])
+        + f" (median of steps 2-{TRAIN_FULL['steps']} {r['median_s']:.4f} s,"
+        f" {r['tokens_s']:.1f} tokens/s); init {r['init_s']:.2f} s; peak "
+        f"memory {r['peak_gb']:.2f} GB; parameters changed {r['changed']};"
+        f" launches {r['launches']}; {split}; census FLOPs {c['flops']:.6e}"
+        f" ({c['by_op']}) against the reckoning {c['want']:.6e}: rel "
+        f"{c['rel']:.3e} (limit {CENSUS_RTOL}, products left out "
+        f"{c['control']:.3e}); bytes {c['bytes']:.6e}; census run "
+        f"{c['census_s']:.3f} s; MFU (6·N·T at the median step) "
+        f"{c['mfu']:.4f}; launcher {TRAIN_FULL['launcher_steps']} steps, "
+        f"step {r['launcher']['step_s']:.4f} s, 'done' printed")
+    b = r["cut"]
+    say("28 cut", f"[{card}] {r['arch']} full width at "
+        f"{TRAIN_CUT['layers']} layers, float32, ({TRAIN_CUT['batch']}, "
+        f"{TRAIN_CUT['seq']}), loss {b['loss']:.6f}: card against CPU loss "
+        f"{b['cpu_loss']:.3e} (limit {TRAIN_CPU_LOSS}, control "
+        f"{b['cpu_loss_control']:.3e}), gradients {b['cpu_grad']:.3e} "
+        f"(limit {TRAIN_CPU_GRAD}, control {b['cpu_grad_control']:.3e}); "
+        "remat against none: " + ", ".join(
+            f"{k} loss {d['loss']:.3e} gradients {d['grad']:.3e}"
+            for k, d in b["remat"].items())
+        + f" (limit {REMAT_RTOL}, control {b['remat_control']:.3e}); peak "
+        "GB " + ", ".join(f"{k} {v:.2f}" for k, v in b["peak_gb"].items())
+        + f"; 2 microbatches against 1: loss {b['micro']['loss']:.3e}, "
+        f"gradients {b['micro']['grad']:.3e} (limit {MICRO_RTOL}, control "
+        f"{b['micro']['control']:.3e}); control: one label of the batch "
+        "changed")
+    e = r["lm100m"]
+    say("28 lm-100m", f"[{card}] examples/train_lm.py --full-100m "
+        f"({e['n_params']} parameters, bf16), batch {LM100M['batch']}x"
+        f"{LM100M['seq']}, {LM100M['microbatches']} microbatches, "
+        f"{LM100M['steps']} steps: loss {e['first']:.4f} → {e['last']:.4f}"
+        f" in {e['seconds']:.2f} s ({e['tokens_s']:.1f} tokens/s, "
+        f"checkpoints every {LM100M['every']} kept {e['kept']}); resumed "
+        f"from step {e['resume_at']}: {e['logged']} logged losses within "
+        f"{e['resume_rel']:.3e} (limit {RESUME_RTOL}, one log entry off "
+        f"{e['resume_control']:.3e}); preempted at its third step: ran "
+        f"{e['preempt_steps']}, saved step {e['preempt_saved']}")
+    say("28 parts", ", ".join(f"{k} {v:.1f} s"
+                              for k, v in r["parts_s"].items()))
 
 
 def zeroed(op):
@@ -3536,6 +4061,14 @@ def main(argv=None) -> None:
         say(f"{tag} times", f"[{card}] " + say_lm_times(res))
         say(f"{tag} time", f"{time.perf_counter() - t_phase:.1f} s")
         fam[arch] = res
+
+    # 28. LM training on one card
+    t_phase = time.perf_counter()
+    s28 = phase_train(device, args.seed, TRAIN_ARCH, TRAIN_FULL, TRAIN_CUT,
+                      LM100M, ROOT / "build" / "phase28_ckpt")
+    check_train(s28)
+    say_train(s28, card)
+    say("28 time", f"{time.perf_counter() - t_phase:.1f} s")
 
     say("total", f"{time.perf_counter() - t_start:.1f} s")
     launches = s4["launches"] + s5["launches"] + s6["fwd"] + s6["bwd"] \

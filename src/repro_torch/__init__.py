@@ -13,13 +13,17 @@ tuning cache behind dispatch and the operation census (``analysis``); the
 distributed layer on ``torch.distributed`` — sharded operators and
 solvers, sharding rules, the pipeline schedule (``distributed``) and the
 mesh builders (``launch.mesh``); the observability layer; the solve
-service, the LM serving engine and the serve steps (``runtime``); the dense and RWKV-6 models (``models``,
-``configs``); the launcher (``launch.serve``); ``interop`` for moving
-problem data, state and model weights between the packages; and the four
-kernels, written by hand in CUDA for Hopper (``kernels``).  ROADMAP.md
-lists what is still to port.
+service, the LM serving engine, the serve steps, the train step and loop
+and fault tolerance (``runtime``); every decoder family of the model zoo
+with its loss and rematerialisation (``models``, ``configs``); the
+optimizers, schedules and gradient compression (``optim``); the data
+stream (``data``); checkpoints in the reference's file format
+(``checkpoint``); the launchers (``launch.serve``, ``launch.train``);
+``interop`` for moving problem data, state, model weights and training
+state between the packages; and the four kernels, written by hand in CUDA
+for Hopper (``kernels``).  ROADMAP.md lists what is still to port.
 """
 
-__all__ = ["analysis", "configs", "core", "distributed", "interop",
-           "kernels", "launch", "models", "observability", "runtime",
-           "stochastic"]
+__all__ = ["analysis", "checkpoint", "configs", "core", "data",
+           "distributed", "interop", "kernels", "launch", "models",
+           "observability", "optim", "runtime", "stochastic"]

@@ -16,6 +16,12 @@ leading L axis and the port keeps a list of per-layer dicts.  bfloat16
 arrays reach numpy as ``ml_dtypes.bfloat16``, which ``torch`` does not read: they are recognised
 by their dtype's name and their bits reinterpreted (``view`` as 16-bit
 integers, then as ``torch.bfloat16``), without importing ``ml_dtypes``.
+
+A training state crosses with :func:`train_state_from_numpy` and
+:func:`train_state_to_numpy`: the JAX package's ``TrainState`` (its
+parameters, its ``OptState``'s step and moments, its error feedback), as
+numpy, holds every tree in the parameters' layout, so each crosses as the
+parameters do.
 """
 from __future__ import annotations
 
@@ -106,3 +112,49 @@ def params_to_numpy(params, bfloat16=None):
     blocks = pytree.tree_unflatten([torch.stack(ls) for ls in layers], spec)
     return {name: pytree.tree_map(leaf, blocks if name == "blocks"
                                   else params[name]) for name in params}
+
+
+def _tree_from_numpy(tree, cfg, device):
+    return None if tree is None else params_from_numpy(tree, cfg, device)
+
+
+def train_state_from_numpy(state, cfg, device=None):
+    """The JAX package's ``TrainState`` of ``cfg`` given as numpy arrays
+    (``jax.tree_util.tree_map(np.asarray, state)``) as the port's
+    ``TrainState`` on ``device`` (default ``cuda``): the parameters, the
+    optimizer's moments (``nu`` may be None) and the error feedback (None
+    or a tree like the parameters) cross as ``params_from_numpy`` carries
+    parameters; the step becomes a 0-d int32 tensor."""
+    from repro_torch.optim.optimizer import OptState
+    from repro_torch.runtime.train_loop import TrainState
+    dev = _device.resolve(device)
+    o = state.opt_state
+    return TrainState(
+        params=params_from_numpy(state.params, cfg, dev),
+        opt_state=OptState(
+            step=torch.tensor(np.asarray(o.step), dtype=torch.int32,
+                              device=dev),
+            mu=_tree_from_numpy(o.mu, cfg, dev),
+            nu=_tree_from_numpy(o.nu, cfg, dev)),
+        err_state=_tree_from_numpy(state.err_state, cfg, dev))
+
+
+def train_state_to_numpy(state, bfloat16=None):
+    """The port's ``TrainState`` as the JAX package's layout in numpy: a
+    ``TrainState`` of the port's class whose trees are those of
+    ``params_to_numpy`` (``bfloat16`` as there) and whose step is a 0-d
+    int32 array; rebuild the JAX one with
+    ``repro.runtime.train_loop.TrainState(params, OptState(*opt_state),
+    err_state)``."""
+    from repro_torch.optim.optimizer import OptState
+    o = state.opt_state
+
+    def conv(tree):
+        return None if tree is None else params_to_numpy(tree, bfloat16)
+
+    return type(state)(
+        params=conv(state.params),
+        opt_state=OptState(step=np.asarray(o.step.detach().cpu().numpy(),
+                                           dtype=np.int32),
+                           mu=conv(o.mu), nu=conv(o.nu)),
+        err_state=conv(state.err_state))

@@ -1,4 +1,4 @@
-"""Top-level model: init / forward / decode for every decoder family.
+"""Top-level model: init / forward / loss / decode for every decoder family.
 
 Counterpart of ``repro/models/model.py``: ``dense`` (and ``vlm`` /
 ``audio``, whose backbone is the dense block; their frontends are stubs
@@ -6,9 +6,21 @@ that take embeddings), ``moe`` (GQA or MLA attention with an MoE MLP:
 ``granite-moe-3b-a800m``, ``deepseek-v2-236b``), ``ssm`` (RWKV-6) and
 ``hybrid`` (Zamba2: a Mamba-2 trunk and ONE weight-shared attention + MLP
 block applied after every ``SHARED_ATTN_EVERY`` trunk layers and after the
-last, shorter segment).  The training-side options of ``forward``
-(``remat``, the sharding constraints) raise ``NotImplementedError`` until
-the training slice (ROADMAP A.12b).
+last, shorter segment).  ``loss_fn`` is the training loss (float32
+log-softmax cross-entropy plus the MoE aux term).  The sharding
+constraints of ``forward`` (``act_sharding``, ``sp_sharding``) raise
+``NotImplementedError`` until training on a mesh (ROADMAP A.12c).
+
+Rematerialisation (``remat=True``, the reference's default) checkpoints
+each trunk block as the reference's ``jax.checkpoint`` does — the
+hybrid's shared block stays outside it, as there — with
+``torch.utils.checkpoint`` (non-reentrant).  ``REMAT_POLICIES`` names what
+a block saves: ``"nothing"`` (its input only), ``"dots"`` (every matrix
+product's output) and ``"dots_no_batch"`` (the 2-D products only, ``mm`` /
+``addmm``; attention's batched ``bmm`` is recomputed), the counterparts of
+``jax.checkpoint_policies``.  Without autograd (``torch.no_grad()``, the
+serving steps) there is nothing to recompute and ``remat`` changes
+nothing.
 
 Behaviours of the reference kept as they are: ``moe_layer_start`` is not
 read (every layer of ``deepseek-v2-236b`` is MoE), MLA never reaches the
@@ -28,13 +40,18 @@ Differences of form from the reference, none of result:
   * ``decode_step`` does not modify the state it is given: it copies the
     KV (or MLA latent) cache once (as the reference's un-donated jit does)
     and writes the new positions into the copy in place.
+  * ``init_params_abstract(cfg)`` gives the parameter tree on the ``meta``
+    device (shapes and types, no storage), where the reference takes a key
+    and returns ``jax.ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import _device
 from repro_torch.configs.base import ArchConfig
@@ -82,9 +99,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator = None,
     ``jax.random``'s; to run both packages on the same weights, carry them
     across with ``repro_torch.interop.params_from_numpy``."""
     dev = _device.resolve(device)
-    gen = generator if generator is not None else \
-        torch.Generator(device=dev).manual_seed(0)
-    if gen.device.type != dev.type:
+    gen = generator
+    if gen is None and dev.type != "meta":
+        gen = torch.Generator(device=dev).manual_seed(0)
+    if gen is not None and gen.device.type != dev.type:
         raise ValueError(f"init_params: the generator is on {gen.device}, "
                          f"the parameters go to {dev}")
     dt = L.torch_dtype(cfg)
@@ -101,8 +119,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator = None,
     return p
 
 
+def init_params_abstract(cfg: ArchConfig) -> Params:
+    """The parameter tree of ``cfg`` on the ``meta`` device: every leaf's
+    shape and type, no storage (the counterpart of ``jax.eval_shape`` of
+    ``init_params``)."""
+    return init_params(cfg, device="meta")
+
+
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (training / prefill)
 # ---------------------------------------------------------------------------
 
 def _dense_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
@@ -125,21 +150,20 @@ def _dense_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
 
 
 def _rwkv_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
-                use_kernel: bool) -> torch.Tensor:
+                use_kernel: bool):
     a, _ = R.time_mix_apply(bp["tm"], cfg,
                             L.rmsnorm(bp["ln1"], h, cfg.norm_eps),
                             use_kernel=use_kernel)
     h = h + a
     c, _ = R.channel_mix_apply(bp["cm"], cfg,
                                L.rmsnorm(bp["ln2"], h, cfg.norm_eps))
-    return h + c
+    return h + c, 0.0
 
 
-def _mamba_block(bp: Params, cfg: ArchConfig, h: torch.Tensor
-                 ) -> torch.Tensor:
+def _mamba_block(bp: Params, cfg: ArchConfig, h: torch.Tensor):
     a, _ = M.mamba_apply(bp["mamba"], cfg,
                          L.rmsnorm(bp["ln1"], h, cfg.norm_eps))
-    return h + a
+    return h + a, 0.0
 
 
 def _shared_attn_block(sp: Params, cfg: ArchConfig, h: torch.Tensor,
@@ -168,8 +192,42 @@ def _embed_inputs(params: Params, cfg: ArchConfig, inputs: torch.Tensor):
     return L.embed(params["embed"], inputs)
 
 
+def _saving_products(batched: bool):
+    """A selective-checkpoint policy that saves the outputs of the matrix
+    products (the 2-D ones only unless ``batched``) and recomputes the
+    rest."""
+    aten = torch.ops.aten
+    saved = {aten.mm.default, aten.addmm.default}
+    if batched:
+        saved |= {aten.bmm.default, aten.baddbmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (_ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+REMAT_POLICIES = {
+    "nothing": None,
+    "dots": _saving_products(batched=True),
+    "dots_no_batch": _saving_products(batched=False),
+}
+
+
+def _rematted(block, policy_name: str):
+    """``block`` under ``torch.utils.checkpoint`` with the named policy."""
+    policy = REMAT_POLICIES[policy_name]
+    context_fn = _ckpt.noop_context_fn if policy is None else \
+        functools.partial(_ckpt.create_selective_checkpoint_contexts, policy)
+
+    def run(*args):
+        return _ckpt.checkpoint(block, *args, use_reentrant=False,
+                                context_fn=context_fn)
+    return run
+
+
 def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
-            use_kernel: bool = False, remat: bool = False,
+            use_kernel: bool = False, remat: bool = True,
             act_sharding=None, remat_policy: str = "nothing",
             sp_sharding=None, moe_dispatch: str = "dense") -> Tuple:
     """Full forward pass.  ``inputs``: int tokens (B, S) or precomputed
@@ -179,38 +237,61 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
 
     ``use_kernel`` routes GQA attention (the hybrid's shared block
     included) through the flash-attention op and the RWKV recurrence
-    through the WKV op.  ``moe_dispatch="sparse"`` runs the MoE layers
-    with ``moe_apply_sparse_gather``, anything else with dense dispatch; a
-    model without MoE ignores it.  ``remat`` (default False here: the
-    reference defaults to True, which only matters under a gradient),
-    ``act_sharding`` and ``sp_sharding`` raise ``NotImplementedError``
-    until the training slice (ROADMAP A.12b); ``remat_policy`` is only
-    read with ``remat``."""
-    if remat:
-        raise NotImplementedError("forward(remat=True) comes with the "
-                                  "training slice (ROADMAP A.12b)")
+    through the WKV op; both are forward only, as the reference's Pallas
+    kernels.  ``moe_dispatch="sparse"`` runs the MoE layers with
+    ``moe_apply_sparse_gather``, anything else with dense dispatch; a
+    model without MoE ignores it.  ``remat`` checkpoints each trunk block
+    under ``REMAT_POLICIES[remat_policy]`` when autograd records (see the
+    module docstring).  ``act_sharding`` and ``sp_sharding`` raise
+    ``NotImplementedError`` until training on a mesh (ROADMAP A.12c)."""
     if act_sharding is not None or sp_sharding is not None:
-        raise NotImplementedError("sharding constraints come with the "
-                                  "training slice (ROADMAP A.12b)")
+        raise NotImplementedError("sharding constraints come with training "
+                                  "on a mesh (ROADMAP A.12c)")
     h = _embed_inputs(params, cfg, inputs)
+    if cfg.family == "ssm":
+        block = lambda bp, h: _rwkv_block(bp, cfg, h, use_kernel)
+    elif cfg.family == "hybrid":
+        block = lambda bp, h: _mamba_block(bp, cfg, h)
+    else:
+        block = lambda bp, h: _dense_block(bp, cfg, h, use_kernel,
+                                           moe_dispatch)
+    if remat and torch.is_grad_enabled():
+        block = _rematted(block, remat_policy)
+
     blocks = params["blocks"]
     auxs = []
-    if cfg.family == "ssm":
-        for bp in blocks:
-            h = _rwkv_block(bp, cfg, h, use_kernel)
-    elif cfg.family == "hybrid":
+    if cfg.family == "hybrid":
         for start, end in _segments(cfg):
             for bp in blocks[start:end]:
-                h = _mamba_block(bp, cfg, h)
+                h, _ = block(bp, h)
             h, _ = _shared_attn_block(params["shared_attn"], cfg, h,
                                       use_kernel)
     else:
         for bp in blocks:
-            h, aux = _dense_block(bp, cfg, h, use_kernel, moe_dispatch)
+            h, aux = block(bp, h)
             auxs.append(aux)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     aux_total = torch.stack(auxs).sum() if cfg.moe else 0.0
     return L.unembed(params["embed"], h), aux_total
+
+
+def loss_fn(params: Params, cfg: ArchConfig, inputs, labels,
+            use_kernel: bool = False, remat: bool = True,
+            act_sharding=None, remat_policy: str = "nothing",
+            sp_sharding=None, moe_dispatch: str = "dense") -> torch.Tensor:
+    """Mean next-token cross-entropy (+ MoE aux), a float32 scalar tensor.
+    ``labels``: (B, S) int."""
+    logits, aux = forward(params, cfg, inputs, use_kernel, remat,
+                          act_sharding=act_sharding,
+                          remat_policy=remat_policy,
+                          sp_sharding=sp_sharding,
+                          moe_dispatch=moe_dispatch)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(nll)
+    if cfg.moe:
+        loss = loss + cfg.moe.router_aux_loss * aux / cfg.num_layers
+    return loss
 
 
 # ---------------------------------------------------------------------------

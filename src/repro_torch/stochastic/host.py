@@ -3,12 +3,12 @@
 Counterpart of ``repro.stochastic.host``.
 :func:`repro_torch.stochastic.run_stochastic` is the vmap-safe loop —
 the one implicit differentiation wraps.  This module is the *host-side*
-alternative for data-scale runs that want a production training loop's
+alternative for data-scale runs that want the production training loop's
 machinery instead (checkpoints, straggler monitoring, preemption).
 
 The adapters are thin by design: :func:`make_stochastic_train_step` turns
 ``solver.update`` into the ``(state, x, y) -> (state, metrics)`` step
-contract of the JAX package's ``train_loop``, and
+contract of ``train_loop``, and
 :func:`stochastic_data_iter` turns the solver's
 :class:`~repro_torch.stochastic.sampler.MinibatchSampler` into the
 ``(step, (x, y))`` iterator such a loop consumes.  Because the sampler
@@ -16,8 +16,10 @@ is ``(seed, step)``-keyed, a loop restarted at ``start_step=k`` sees the
 identical minibatch sequence the original run would have.
 
 The JAX adapter's ``jit=`` has no counterpart (PyTorch runs eagerly) and
-is not taken; the port's ``train_loop`` itself comes with the training
-slice (ROADMAP A.12).
+is not taken.  Both adapters run under the port's
+``repro_torch.runtime.train_loop.train_loop`` (with its
+``CheckpointManager``; a restart from a checkpoint at ``start_step=k``
+equals the uninterrupted run).
 """
 from __future__ import annotations
 

@@ -18,7 +18,10 @@ functions, classes and UPPER-case constants — those defined there, those
 it binds under another name (``projection_simplex_ref``), and a package's
 re-exports — apart from the names listed below with their reason.
 ``repro_torch.distributed.spec`` has no reference module (the reference
-imports ``P`` from ``jax.sharding``).
+imports ``P`` from ``jax.sharding``).  The training stack (``optim``,
+``data``, ``checkpoint``, ``runtime.fault_tolerance``, the train step and
+loop, ``launch.train``) carries every reference name; its mesh-only
+options raise ``NotImplementedError`` citing ROADMAP A.12c.
 """
 import ast
 import importlib
@@ -63,20 +66,6 @@ NOT_MIRRORED = {
     "repro_torch.kernels.rwkv_wkv.kernel": ({"wkv_bh"}, _PALLAS_LEVEL),
     "repro_torch.kernels.simplex_proj.kernel": (
         {"projection_simplex_rows"}, _PALLAS_LEVEL),
-    "repro_torch.models": (
-        {"init_params_abstract", "loss_fn"}, "ROADMAP A.12b, training"),
-    "repro_torch.models.model": (
-        {"REMAT_POLICIES", "init_params_abstract", "loss_fn"},
-        "ROADMAP A.12b, training"),
-    "repro_torch.runtime": (
-        {"ElasticPlan", "HeartbeatRegistry", "PreemptionHandler",
-         "StragglerMonitor", "TrainState", "TrainStepConfig",
-         "make_train_state", "make_train_step", "run_train_loop"},
-        "ROADMAP A.12b, training"),
-    "repro_torch.runtime.train_loop": (
-        {"TrainState", "TrainStepConfig", "make_train_state",
-         "make_train_state_abstract", "make_train_step", "train_loop"},
-        "ROADMAP A.12b, training"),
 }
 
 
@@ -168,7 +157,17 @@ def test_port_has_modules():
                    "repro_torch/distributed/sharded_operators.py",
                    "repro_torch/distributed/sharding.py",
                    "repro_torch/distributed/pipeline.py",
-                   "repro_torch/launch/mesh.py"):
+                   "repro_torch/launch/mesh.py",
+                   "repro_torch/optim/__init__.py",
+                   "repro_torch/optim/optimizer.py",
+                   "repro_torch/optim/schedules.py",
+                   "repro_torch/optim/grad_compression.py",
+                   "repro_torch/data/__init__.py",
+                   "repro_torch/data/pipeline.py",
+                   "repro_torch/checkpoint/__init__.py",
+                   "repro_torch/checkpoint/checkpointer.py",
+                   "repro_torch/runtime/fault_tolerance.py",
+                   "repro_torch/launch/train.py"):
         assert module in names
     assert (REPO / "chip_smoke.py").exists()
     for name in ("flash_attention", "rwkv_wkv"):
@@ -263,7 +262,18 @@ def test_every_new_module_of_the_slice_is_a_ported_submodule():
                    "repro_torch.observability.events",
                    "repro_torch.kernels.simplex_proj.ref",
                    "repro_torch.models.moe",
-                   "repro_torch.models.mamba"):
+                   "repro_torch.models.mamba",
+                   "repro_torch.optim",
+                   "repro_torch.optim.optimizer",
+                   "repro_torch.optim.schedules",
+                   "repro_torch.optim.grad_compression",
+                   "repro_torch.data",
+                   "repro_torch.data.pipeline",
+                   "repro_torch.checkpoint",
+                   "repro_torch.checkpoint.checkpointer",
+                   "repro_torch.runtime.fault_tolerance",
+                   "repro_torch.runtime.train_loop",
+                   "repro_torch.launch.train"):
         assert module in names, module
     assert "repro_torch.distributed.spec" not in names
 
