@@ -23,7 +23,9 @@ launcher and the continuous-batching engine (phases 12-16) — and of the
 MoE, hybrid and MLA families at full width (phases 25-27); LM training
 of ``qwen1.5-4b`` whole at full width, of its width at 2 layers against
 the CPU, and of ``examples/train_lm.py``'s 100 M model with checkpoints,
-resume and preemption (phase 28).  Each phase prints one line:
+resume and preemption (phase 28); training on a mesh of one rank through
+the DTensor path, and the production dry run on fake ranks (phase 29).
+Each phase prints one line:
 
   1. card: name, device count, ``nvidia-smi`` name and power limit;
   2. build: the four kernel libraries are compiled from the repo's sources
@@ -334,7 +336,38 @@ resume and preemption (phase 28).  Each phase prints one line:
      preempted at its third step stops there and checkpoints step 3;
      tokens/s and each part's seconds printed.
 
-Phases 17-28 each print their duration on a line of their own, and the
+ 29. training on a mesh and the dry run: (a)-(c) on a single-rank NCCL
+     mesh (``launch.mesh.make_host_mesh(1, 1)``, destroyed at the phase's
+     end): the state and inputs are DTensors, every placement whole on
+     one rank, so each operation of phase 28 runs through DTensor's
+     dispatch (the multi-rank paths are held by the gloo tests on the
+     CPU): (a) ``qwen1.5-4b`` whole,
+     bf16, trained as phase 28 (a) (same seed, batches, optimizer and
+     schedule) for 3 steps with its state placed by ``params_specs`` and
+     ``act_sharding``, ``sp_sharding`` and ``grad_sharding`` set: every
+     loss and gradient norm within rtol 1e-4 of phase 28's steps (the
+     limit phase 28 (c) uses; its steps one off are the control), 0 kernel
+     launches, the step s, tokens/s, peak memory and busy share printed
+     beside phase 28's (the difference is DTensor's host cost); (b) the
+     same width at 2 layers, float32, (2, 512), 2 microbatches and all
+     four mesh options against the unmeshed step on the card: the loss
+     within 1e-5, each leaf's gradient within 1e-4 (one label changed is
+     the control); (c) a meshed bf16 kernel prefill at (4, 2048) with
+     ``act_sharding``: exactly 40 ``tc`` flash-attention launches (each
+     rank's own heads), its logits within 5e-2 (phase 14's bf16 limit) of
+     the unmeshed kernel prefill (its rows rolled by one are the control);
+     (d) started first and run alongside: ``python -m
+     repro_torch.launch.dryrun`` for ``qwen1.5-4b`` × {``train_4k``,
+     ``prefill_32k``, ``decode_32k``} on 16 × 16 and ``train_4k`` on
+     2 × 16 × 16, each a process of its own on fake ranks with no CUDA
+     device visible (``train_4k`` with one microbatch: the default 16 run
+     the same products in 16 pieces), each ``ok``, the train cells'
+     per-rank product FLOPs × ranks within 1 % of ``mesh_train_flops``
+     (phase 28's reckoning with the attention run whole on each rank of
+     the model axis, whose 16 the 20 heads do not divide; the unsharded
+     reckoning is the control), each cell's roofline terms printed.
+
+Phases 17-29 each print their duration on a line of their own, and the
 script its total.  The run
 fails at once if ``REPRO_AUTOTUNE_CACHE`` is set: phases 3-20 hold every
 batched-CG launch to the kernel's rule, which only a cold tuning cache
@@ -347,11 +380,11 @@ batched_cg, ``ops.LAUNCHES_BY_LAYOUT``; for flash attention,
 24's single-device gradient for batched_cg — not 22's sweep, whose
 launches it prints apart —
 phase 6's forward and backward each on their own, 10 for simplex_proj,
-each kernel prefill of 14 and 25-27 for flash_attention and of 15 for
-rwkv_wkv, and 28's training loops for flash_attention and rwkv_wkv, which
-must read 0; the JSON line reports the bfloat16 ones, for flash attention
-the tc launches of 14, 25 and 26 summed, and adds the CUDA-core kernel's
-time as
+each kernel prefill of 14, 25-27 and 29 (c) for flash_attention and of
+15 for rwkv_wkv, and the training loops of 28 and 29 (a) for
+flash_attention and rwkv_wkv, which must read 0; the JSON line reports the
+bfloat16 ones, for flash attention the tc launches of 14, 25, 26 and 29
+(c) summed, and adds the CUDA-core kernel's time as
 ``previous_ms``) and read just after.  ``previous_ms`` of batched_cg is
 the stream route's time in the same turns; of simplex_proj and rwkv_wkv
 the earlier design's time, measured when ``--previous`` names an earlier
@@ -532,6 +565,15 @@ MICRO_RTOL = 1e-5                  # (b) two microbatches against one
 RESUME_RTOL = 1e-4                 # (c) the reference's own resume limit
                                    # (tests/test_runtime.py:300)
 SHARD_RTOL = 2 * CLOSED_RTOL       # phase 24 (b): sharded against single
+# phase 29: training on a single-rank mesh and the dry run
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_RTOL = 1e-4             # (a): phase 28 (c)'s limit (CUDA atomics)
+# (d): one microbatch: the default 16 run the same products in 16 pieces
+# and take 16 times as long on the host (PERF.md)
+DRYRUN_CELLS = [("train_4k", ["--microbatches", "1"]), ("prefill_32k", []),
+                ("decode_32k", []),
+                ("train_4k", ["--multi-pod", "--microbatches", "1"])]
+DRYRUN_TIMEOUT_S = 170
 
 
 def fail(msg: str) -> None:
@@ -3375,6 +3417,368 @@ def say_train(r, card):
                               for k, v in r["parts_s"].items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 29: training on a mesh (one rank) and the dry run on fake ranks
+# ---------------------------------------------------------------------------
+
+def frel(a: float, b: float) -> float:
+    """|a − b| / |b| of two numbers."""
+    return abs(a - b) / abs(b)
+
+
+def mesh_train_flops(cfg, B, S, n_model, attn_tp) -> float:
+    """The product FLOPs of one remat ``"nothing"`` train step of a dense
+    model summed over the ranks of a (data, model) mesh: phase 28's
+    reckoning (``train_step_flops``), plus, where the heads do not divide
+    the model axis (``attn_tp`` False), the attention projections (8 ·
+    N_attn · T) and the plain attention (16 · L · B · H · S² · D) once more
+    for each further rank of that axis, which runs them whole; the MLP and
+    the LM head split over it."""
+    if attn_tp:
+        return train_step_flops(cfg, B, S)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    n_attn = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+    T = B * S
+    attention = cfg.num_layers * (8.0 * n_attn * T + 16.0 * B * cfg.num_heads
+                                  * S * S * hd)
+    return train_step_flops(cfg, B, S) + (n_model - 1) * attention
+
+
+def start_dryruns(out_dir):
+    """Phase 29 (d): ``python -m repro_torch.launch.dryrun`` for each cell
+    of ``DRYRUN_CELLS``, all at once, each a process of its own on the
+    host's cores with no CUDA device visible (fake ranks allocate
+    nothing); returns the running processes."""
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = {}
+    for shape, extra in DRYRUN_CELLS:
+        procs[(shape, tuple(extra))] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             TRAIN_ARCH, "--shape", shape, "--out", str(out_dir)] + extra,
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def finish_dryruns(procs, out_dir):
+    """Wait for ``start_dryruns``' processes; each cell's result with its
+    product FLOPs summed over the ranks against ``mesh_train_flops`` for
+    the train cells."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, shapes
+    cfg = configs.get(TRAIN_ARCH)
+    out = []
+    try:
+        for (shape, extra), p in procs.items():
+            try:
+                _, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+                fail(f"phase 29 (d): the dry run of {shape} {extra} took "
+                     f"more than {DRYRUN_TIMEOUT_S} s")
+            multi = "--multi-pod" in extra
+            tag = "2x16x16" if multi else "16x16"
+            path = out_dir / f"{TRAIN_ARCH}_{shape}_{tag}.json"
+            if p.returncode != 0 or not path.exists():
+                fail(f"phase 29 (d): dry run {shape} {tag} exited "
+                     f"{p.returncode}: {err[-2000:]}")
+            r = json.loads(path.read_text())
+            cell = dict(shape=shape, mesh=tag, status=r["status"],
+                        error=r.get("error"), compile_s=r.get("compile_s"),
+                        roofline=r.get("roofline"),
+                        collective=r.get("collective_bytes"),
+                        memory=r.get("memory"), extra=extra)
+            if r["status"] == "ok" and shapes.SHAPES[shape].kind == "train":
+                mesh = shd.abstract_mesh((2, 16, 16) if multi else (16, 16),
+                                         ("pod", "data", "model") if multi
+                                         else ("data", "model"))
+                attn_tp = dryrun._attn_tp(cfg, mesh, dryrun._rules(multi))
+                c = shapes.SHAPES[shape]
+                want = mesh_train_flops(cfg, c.global_batch, c.seq_len, 16,
+                                        attn_tp)
+                got = r["roofline"]["hlo_flops"] * r["roofline"]["chips"]
+                cell.update(flops=got, want=want,
+                            rel=abs(got - want) / want,
+                            control=abs(got - train_step_flops(
+                                cfg, c.global_batch, c.seq_len)) / want)
+            out.append(cell)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
+def phase_mesh_train(device, seed, arch, full, hist28, cut):
+    """Phase 29 (a)-(c) on a single-rank NCCL mesh (``make_host_mesh(1,
+    1)``, destroyed at the end): (a) ``arch`` whole, bf16, trained as in
+    phase 28 (a) (same seed, batches, optimizer and schedule) for 3 steps
+    with ``act_sharding``, ``sp_sharding`` and ``grad_sharding``, its
+    losses and gradient norms against phase 28's (``hist28``), a profiled
+    step; (b) its width at ``cut["layers"]`` layers, float32, 2
+    microbatches and all four mesh options, the loss and gradients
+    against the unmeshed ones on the card (the control: one label
+    changed); (c) a meshed bf16 kernel prefill at ``LM_PREFILL`` with
+    ``act_sharding`` against the unmeshed kernel prefill (the control: the
+    unmeshed logits of the batch's rows rolled by one)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+    from repro_torch import configs
+    from repro_torch._dtensor import full as whole_value
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.spec import NamedSharding, P
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv_wkv import ops as wkv_ops
+    from repro_torch.launch.mesh import _release_own_group, make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.optim.optimizer import OptState
+    from repro_torch.runtime import (StragglerMonitor, TrainState,
+                                     TrainStepConfig, make_prefill_step,
+                                     make_train_state, make_train_step,
+                                     run_train_loop)
+    from repro_torch.runtime.train_loop import make_value_and_grad
+    res = {}
+    parts = res["parts_s"] = {}
+    t_part = time.perf_counter()
+    mesh = make_host_mesh(1, 1, device=device)
+    res["backend"] = dist.get_backend()
+    res["mesh"] = (tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+    rules = shd.ShardingRules()
+    NS = lambda spec: NamedSharding(mesh, spec)
+    act, sp = NS(P("data", None, None)), NS(P("data", "model", None))
+
+    def placed(state):
+        ps = shd.params_specs(state.params, rules, mesh)
+        return shd.distribute(state, mesh, TrainState(
+            params=ps, opt_state=OptState(step=None, mu=ps, nu=ps),
+            err_state=None)), pytree.tree_map(
+                NS, ps, is_leaf=lambda x: isinstance(x, P))
+
+    try:
+        # (a) the whole model at full width on the mesh
+        cfg = configs.get(arch)
+        B, S, steps = full["batch"], full["seq"], MESH_TRAIN_STEPS
+        optimizer = adamw(schedules.linear_warmup_cosine(
+            full["lr"], warmup=10, total=full["steps"]), weight_decay=0.01)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        state, grads_at = placed(make_train_state(cfg, optimizer,
+                                                  torch.Generator(
+                                                      device=device)
+                                                  .manual_seed(seed + 28),
+                                                  device=device))
+        step_fn = make_train_step(cfg, optimizer, TrainStepConfig(
+            remat=True, remat_policy="nothing", clip_norm=1.0,
+            act_sharding=act, sp_sharding=sp, grad_sharding=grads_at))
+        stream = SyntheticLMStream(DataConfig(vocab_size=cfg.vocab_size,
+                                              seq_len=S, global_batch=B,
+                                              seed=seed))
+        monitor = StragglerMonitor()
+        fa_ops.LAUNCHES, wkv_ops.LAUNCHES = 0, 0
+        state, hist = run_train_loop(step_fn, state, train_batches(stream),
+                                     num_steps=steps, monitor=monitor,
+                                     log_every=1)
+        res["launches"] = {"flash_attention": fa_ops.LAUNCHES,
+                           "rwkv_wkv": wkv_ops.LAUNCHES}
+        step_s = list(monitor.times[0])
+        ref = hist28[:steps]
+        res.update(
+            hist=hist, step_s=step_s,
+            median_s=sorted(step_s[1:])[len(step_s[1:]) // 2],
+            peak_gb=torch.cuda.max_memory_allocated(device) / 1e9
+            if device.type == "cuda" else None,
+            loss_rel=max(frel(h["loss"], r["loss"])
+                         for h, r in zip(hist, ref)),
+            norm_rel=max(frel(h["grad_norm"], r["grad_norm"])
+                         for h, r in zip(hist, ref)),
+            control=min(max(frel(h["loss"], r["loss"]),
+                            frel(h["grad_norm"], r["grad_norm"]))
+                        for h, r in zip(hist, hist28[1:steps + 1])))
+        res["tokens_s"] = B * S / res["median_s"]
+        x, y = stream.batch_at(steps)
+        res["profile"] = train_profile(step_fn, state, x, y, device)
+        del state, step_fn
+        free(device)
+        parts["(a)"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # (b) full width, cut depth, float32, every mesh option
+        cfg32 = dataclasses.replace(cfg, num_layers=cut["layers"],
+                                    dtype="float32")
+        params = init_params(cfg32, torch.Generator(device=device)
+                             .manual_seed(seed + 290), device=device)
+        pspecs = shd.params_specs(params, rules, mesh)
+        meshed = shd.distribute(params, mesh, pspecs)
+        rng = torch.Generator().manual_seed(seed + 291)
+        xb = torch.randint(0, cfg.vocab_size, (cut["batch"], cut["seq"]),
+                           generator=rng)
+        yb = torch.randint(0, cfg.vocab_size, (cut["batch"], cut["seq"]),
+                           generator=rng)
+        yc = yb.clone()
+        yc[0, 0] = (yc[0, 0] + 1) % cfg.vocab_size
+        options = TrainStepConfig(
+            remat=False, microbatches=2,
+            microbatch_sharding=NS(P(None, "data")), act_sharding=act,
+            sp_sharding=sp, grad_sharding=pytree.tree_map(
+                NS, pspecs, is_leaf=lambda x: isinstance(x, P)))
+        batch = NS(shd.batch_spec(rules))
+
+        def grads(tcfg, p, ys, on_mesh):
+            xs_, ys_ = xb.to(device), ys.to(device)
+            if on_mesh:
+                from repro_torch._dtensor import constrain
+                xs_, ys_ = constrain(xs_, batch), constrain(ys_, batch)
+            loss, g = make_value_and_grad(cfg32, tcfg)(p, xs_, ys_)
+            return float(loss), pytree.tree_map(
+                lambda t: whole_value(t).cpu(), g)
+
+        l_ref, g_ref = grads(TrainStepConfig(remat=False, microbatches=2),
+                             params, yb, False)
+        l_m, g_m = grads(options, meshed, yb, True)
+        l_c, g_c = grads(options, meshed, yc, True)
+        res["cut"] = dict(loss=l_m, loss_rel=abs(l_m - l_ref) / abs(l_ref),
+                          grad_rel=grads_rel(g_m, g_ref),
+                          loss_control=abs(l_c - l_ref) / abs(l_ref),
+                          grad_control=grads_rel(g_c, g_ref))
+        del params, meshed, g_ref, g_m, g_c
+        free(device)
+        parts["(b)"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # (c) the meshed kernel prefill
+        params = init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(seed + 292), device=device)
+        Bp, Sp = LM_PREFILL
+        tokens = torch.randint(0, cfg.vocab_size, (Bp, Sp),
+                               generator=torch.Generator(device=device)
+                               .manual_seed(seed + 293), device=device)
+        plain = make_prefill_step(cfg, use_kernel=True)(params, tokens)
+        meshed = shd.distribute(params, mesh, shd.params_specs(
+            params, rules, mesh))
+        from repro_torch._dtensor import constrain
+        step = make_prefill_step(cfg, use_kernel=True, act_sharding=act)
+        before = dict(fa_ops.LAUNCHES_BY_ROUTE)
+        got = step(meshed, constrain(tokens, batch))
+        sync(device)
+        routes = {r: n - before.get(r, 0)
+                  for r, n in fa_ops.LAUNCHES_BY_ROUTE.items()}
+        got = whole_value(got)
+        res["prefill"] = dict(
+            routes=routes, err=logits_error(got, plain),
+            control=logits_error(got, plain.roll(1, dims=0)))
+        del params, meshed, plain, got
+        free(device)
+        parts["(c)"] = time.perf_counter() - t_part
+    finally:
+        _release_own_group()
+    return res
+
+
+def check_mesh_train(r, dry):
+    """The hard checks of phase 29 (see the module docstring)."""
+    check(r["backend"] == "nccl" and r["mesh"] == (("data", "model"),
+                                                   (1, 1)),
+          f"phase 29: group {r['backend']}, mesh {r['mesh']}")
+    for h in r["hist"]:
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+              f"phase 29 (a): step {h['step']:.0f} loss {h['loss']}")
+    check(len(r["hist"]) == MESH_TRAIN_STEPS, f"phase 29 (a): "
+          f"{len(r['hist'])} steps logged")
+    check(r["launches"] == {"flash_attention": 0, "rwkv_wkv": 0},
+          f"phase 29 (a): kernel launches {r['launches']} in training")
+    check(max(r["loss_rel"], r["norm_rel"]) <= MESH_TRAIN_RTOL
+          < r["control"], f"phase 29 (a): meshed against unmeshed loss "
+          f"{r['loss_rel']:.3e}, gradient norm {r['norm_rel']:.3e} (limit "
+          f"{MESH_TRAIN_RTOL}, one step off {r['control']:.3e})")
+    b = r["cut"]
+    check(b["loss_rel"] <= TRAIN_CPU_LOSS < b["loss_control"],
+          f"phase 29 (b): meshed against unmeshed loss {b['loss_rel']:.3e} "
+          f"(limit {TRAIN_CPU_LOSS}, control {b['loss_control']:.3e})")
+    check(b["grad_rel"] <= TRAIN_CPU_GRAD < b["grad_control"],
+          f"phase 29 (b): meshed against unmeshed gradients "
+          f"{b['grad_rel']:.3e} (limit {TRAIN_CPU_GRAD}, control "
+          f"{b['grad_control']:.3e})")
+    p = r["prefill"]
+    limit = LM_RTOL[TRAIN_ARCH]
+    check(p["routes"].get("tc", 0) == 40 and sum(p["routes"].values()) == 40,
+          f"phase 29 (c): meshed prefill launches {p['routes']}")
+    check(p["err"][0] <= limit < p["control"][0], f"phase 29 (c): meshed "
+          f"against unmeshed kernel prefill {p['err'][0]:.3e} (limit "
+          f"{limit}, rows rolled {p['control'][0]:.3e})")
+    for cell in dry:
+        check(cell["status"] == "ok", f"phase 29 (d): {cell['shape']} "
+              f"{cell['mesh']}: {cell['status']} {cell['error']}")
+        if "rel" in cell:
+            check(cell["rel"] <= CENSUS_RTOL < cell["control"], f"phase 29 "
+                  f"(d): {cell['shape']} {cell['mesh']} FLOPs "
+                  f"{cell['flops']:.6e} against {cell['want']:.6e}: rel "
+                  f"{cell['rel']:.3e} (limit {CENSUS_RTOL}, the unsharded "
+                  f"reckoning {cell['control']:.3e})")
+
+
+def say_mesh_train(r, s28, dry, card):
+    p, p28 = r["profile"], s28["profile"]
+
+    def busy(prof):
+        if prof is None:
+            return "not measured"
+        return f"{prof['busy_ms'] / prof['wall_ms'] * 100:.1f} %"
+    say("29 mesh", f"[{card}] group {r['backend']}, mesh {r['mesh']}; (a) "
+        f"{TRAIN_ARCH} whole, bf16, ({TRAIN_FULL['batch']}, "
+        f"{TRAIN_FULL['seq']}), act/sp/grad sharding: loss "
+        + ", ".join(f"{h['loss']:.6f}" for h in r["hist"]) + "; grad_norm "
+        + ", ".join(f"{h['grad_norm']:.6f}" for h in r["hist"])
+        + f"; against phase 28: loss {r['loss_rel']:.3e}, norm "
+        f"{r['norm_rel']:.3e} (limit {MESH_TRAIN_RTOL}, one step off "
+        f"{r['control']:.3e}); step s " + ", ".join(
+            f"{t:.4f}" for t in r["step_s"]) + f" (median "
+        f"{r['median_s']:.4f} s, {r['tokens_s']:.1f} tokens/s; phase 28 "
+        f"{s28['median_s']:.4f} s, {s28['tokens_s']:.1f} tokens/s); peak "
+        f"{r['peak_gb']:.2f} GB (phase 28 {s28['peak_gb']:.2f}); busy "
+        f"{busy(p)} of a profiled step "
+        + (f"{p['wall_ms']:.2f} ms" if p else "") + f" (phase 28 "
+        f"{busy(p28)}); launches {r['launches']}")
+    b, q = r["cut"], r["prefill"]
+    say("29 mesh", f"[{card}] (b) {TRAIN_CUT['layers']} layers, float32, "
+        f"({TRAIN_CUT['batch']}, {TRAIN_CUT['seq']}), 2 microbatches, all "
+        f"four mesh options: loss {b['loss']:.6f}, against unmeshed "
+        f"{b['loss_rel']:.3e} (limit {TRAIN_CPU_LOSS}, control "
+        f"{b['loss_control']:.3e}), gradients {b['grad_rel']:.3e} (limit "
+        f"{TRAIN_CPU_GRAD}, control {b['grad_control']:.3e}); (c) bf16 "
+        f"kernel prefill {LM_PREFILL} with act_sharding: launches "
+        f"{q['routes']}, against unmeshed {q['err'][0]:.3e} (max |Δ| "
+        f"{q['err'][1]:.3e}; limit {LM_RTOL[TRAIN_ARCH]}, rows rolled "
+        f"{q['control'][0]:.3e})")
+    for c in dry:
+        rf = c["roofline"] or {}
+        extra = (f"; product FLOPs × chips {c['flops']:.6e} against "
+                 f"{c['want']:.6e}: rel {c['rel']:.3e} (limit {CENSUS_RTOL},"
+                 f" unsharded reckoning {c['control']:.3e})"
+                 if "rel" in c else "")
+        say("29 dryrun", f"{TRAIN_ARCH} {c['shape']} {c['mesh']} "
+            f"{' '.join(c['extra'])}: {c['status']} in {c['compile_s']} s; "
+            f"roofline compute {rf.get('compute_s', 0):.4f} s, memory "
+            f"{rf.get('memory_s', 0):.4f} s, collective "
+            f"{rf.get('collective_s', 0):.4f} s ({rf.get('dominant')}), "
+            f"mfu {rf.get('mfu', 0):.4f}; collective bytes "
+            f"{(c['collective'] or {}).get('total')}; per-rank argument "
+            f"bytes {(c['memory'] or {}).get('argument_bytes')}, temp "
+            f"{(c['memory'] or {}).get('temp_bytes')}" + extra)
+    say("29 parts", ", ".join(f"{k} {v:.1f} s"
+                              for k, v in r["parts_s"].items()))
+
+
 def zeroed(op):
     """A replacement of a kernel op whose attention / WKV output is 0."""
     def fn(*args, **kw):
@@ -4070,6 +4474,17 @@ def main(argv=None) -> None:
     say_train(s28, card)
     say("28 time", f"{time.perf_counter() - t_phase:.1f} s")
 
+    # 29. training on a mesh (one rank, NCCL) and the dry run (fake ranks)
+    t_phase = time.perf_counter()
+    dry_dir = ROOT / "build" / "phase29_dryrun"
+    dry_procs = start_dryruns(dry_dir)
+    s29 = phase_mesh_train(device, args.seed, TRAIN_ARCH, TRAIN_FULL,
+                           s28["hist"], TRAIN_CUT)
+    dry29 = finish_dryruns(dry_procs, dry_dir)
+    check_mesh_train(s29, dry29)
+    say_mesh_train(s29, s28, dry29, card)
+    say("29 time", f"{time.perf_counter() - t_phase:.1f} s")
+
     say("total", f"{time.perf_counter() - t_start:.1f} s")
     launches = s4["launches"] + s5["launches"] + s6["fwd"] + s6["bwd"] \
         + s7["launches"] + s17["grad"]["launches"] \
@@ -4089,7 +4504,8 @@ def main(argv=None) -> None:
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
         "replaces": FA_REPLACES,
         "launches": s14["bf16"]["routes"]["tc"] + sum(
-            r["bf16"]["routes"]["tc"] for r in fam.values()),
+            r["bf16"]["routes"]["tc"] for r in fam.values())
+        + s29["prefill"]["routes"]["tc"],
         "max_abs_err": err12, "ms": t16["ms"], "plain_ms": t16["plain_ms"],
         "bound_ms": t16["bound_ms"], "bound_by": t16["bound_by"],
         "library_ms": t16["library_ms"], "previous_ms": t16["simt_ms"]}, {

@@ -31,6 +31,15 @@ Cost model (per aten operation, the shapes of this call):
     reference's HLO analyzer counts a custom call's bytes as nothing.
     The call does nothing when no census is active.
 
+On DTensors (a mesh) the census counts what one rank runs: it declines
+the DTensor-level operation (``NotImplemented``), so DTensor's dispatch
+runs and the census sees its per-rank operations on local shards and the
+``_c10d_functional`` collectives it issues.  ``prim`` operations (a
+tensor's device) and ``wait_tensor`` (a collective's completion) move no
+data, and operations on ``FakeTensor``s (DTensor's inference of an
+operation's output shapes, the first time it meets the operation) count
+nothing.
+
 ``analyze_module(fn, *args, **kwargs)``, ``collective_bytes`` and
 ``collective_op_counts`` take a callable and its arguments where the
 reference takes HLO text.
@@ -57,7 +66,8 @@ _C10D_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d")
 # ``_unsafe_view`` aliases its input; an allocation reads nothing and
 # leaves its memory unwritten): counted as nothing
 _NO_DATA = {"_unsafe_view", "lift_fresh", "empty", "empty_like",
-            "empty_strided", "new_empty", "new_empty_strided"}
+            "empty_strided", "new_empty", "new_empty_strided",
+            "wait_tensor"}
 
 
 @dataclasses.dataclass
@@ -134,6 +144,16 @@ def _collective_kind(func) -> str:
     return ""
 
 
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _fake_type():
+    from torch._subclasses.fake_tensor import FakeTensor
+    return FakeTensor
+
+
 _ACTIVE = threading.local()
 
 
@@ -160,10 +180,14 @@ class Census(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, _dtensor_type()) for t in types):
+            return NotImplemented      # count the rank's local operations
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if any(issubclass(t, _fake_type()) for t in types):
+            return out                 # DTensor's shape inference
         name = func._schema.name.split("::")[-1]
-        if func.is_view or name in _NO_DATA:
+        if func.is_view or name in _NO_DATA or func.namespace == "prim":
             return out
         c = self.costs
         moved = _bytes_of((args, kwargs)) + _bytes_of(out)

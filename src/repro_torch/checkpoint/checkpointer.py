@@ -20,6 +20,15 @@ per-layer dicts stacked on a leading L axis (the reference's layout), and
 bfloat16 widened to float32 (``npz`` has no bfloat16; ``restore`` casts
 back to the target's type).
 
+On a mesh the state's leaves are DTensors.  ``save`` gathers each one
+whole (``full_tensor``, a collective: every rank of the mesh calls
+``save`` with the same tree) and global rank 0 alone writes, so the file
+is the reference's, full arrays and one writer, whatever the mesh.
+``restore`` into a DTensor target has every rank read the file and copy
+its own shard of each array into the target's local tensor, so a
+checkpoint written on one mesh restores on any other (the elastic
+restart: saved on 4 × 2 ranks, restored on 2 × 2).
+
 Differences of form: ``save`` copies every tensor to host memory on the
 calling thread before it returns (the train step updates its state in
 place, so the background writer must not read the live tensors), and
@@ -41,6 +50,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed
+
+from repro_torch._dtensor import full, is_dtensor, local_slice, shard
 
 
 def _is_namedtuple(x) -> bool:
@@ -77,9 +89,10 @@ def _leaves(tree, parts=(), layer=None):
 
 
 def _host(leaf) -> np.ndarray:
-    """A host copy of ``leaf`` as numpy, bfloat16 widened to float32."""
+    """A host copy of ``leaf`` as numpy, bfloat16 widened to float32 (a
+    DTensor gathered whole first)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = full(leaf.detach()).to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
         return t.numpy()
@@ -119,6 +132,16 @@ def _restored(tree, data, shared, parts=(), layer=None):
             where = key if layer is None else f"{key}[{layer}]"
             raise ValueError(f"checkpoint/model shape mismatch at {where}: "
                              f"{arr.shape} vs {shape}")
+        if is_dtensor(tree):
+            src = local_slice(torch.from_numpy(np.asarray(arr)),
+                              tree.device_mesh, tree.placements)
+            if id(tree) in shared:
+                return shard(torch.from_numpy(np.asarray(arr)).to(
+                    device=tree.device, dtype=tree.dtype),
+                    tree.device_mesh, tree.placements)
+            with torch.no_grad():
+                tree.to_local().copy_(src)
+            return tree
         if isinstance(tree, torch.Tensor):
             src = torch.from_numpy(np.asarray(arr))
             if tree.device.type == "meta":
@@ -161,9 +184,14 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, blocking: bool = False):
         """Snapshot ``tree`` at ``step``: copied to host memory here, the
-        file written on a background thread unless ``blocking``."""
+        file written on a background thread unless ``blocking``.  A tree
+        of DTensors is gathered here on every rank and written by global
+        rank 0 alone."""
         self.wait()
         arrays = _flatten(tree)
+        if any(is_dtensor(leaf) for _, _, leaf in _leaves(tree)) and \
+                torch.distributed.get_rank() != 0:
+            return
 
         def _write():
             tmp = os.path.join(self.dir, f"step_{step}.tmp")

@@ -23,7 +23,10 @@ The port's parameter dict has the JAX package's names, but ``blocks`` is
 a list of per-layer dicts where the JAX tree stacks the layers on a
 leading L axis: a layer's leaf gets the spec the JAX leaf gets without
 its leading ``None``.  ``named(mesh, spec_tree)`` binds specs to a mesh
-as DTensor placements.
+as DTensor placements; ``distribute(tree, mesh, spec_tree)`` places a
+tree of tensors that every rank holds alike (a model's parameters drawn
+from one seed, a restored state) as DTensors, each rank keeping its own
+slice — the port's ``jax.device_put(tree, named(mesh, specs))``.
 """
 from __future__ import annotations
 
@@ -279,3 +282,25 @@ def named(mesh, spec_tree: Any) -> Any:
         return type(spec_tree)(*vals) if hasattr(spec_tree, "_fields") \
             else type(spec_tree)(vals)
     return spec_tree
+
+
+def distribute(tree: Any, mesh, spec_tree: Any) -> Any:
+    """Every tensor leaf of ``tree`` — the whole value, held alike by every
+    rank — as a DTensor on ``mesh`` placed by the ``PartitionSpec`` at the
+    same place of ``spec_tree`` (a tree shaped like ``tree``; a ``None``
+    subtree leaves its subtree as it is).  Each rank keeps its own slice,
+    a contiguous copy; no collective runs."""
+    from repro_torch import _dtensor
+    if spec_tree is None or tree is None:
+        return tree
+    if isinstance(spec_tree, PartitionSpec):
+        return _dtensor.shard(tree, mesh,
+                              placements(mesh, spec_tree, tree.ndim))
+    if isinstance(tree, dict):
+        return {k: distribute(v, mesh, spec_tree[k])
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        vals = [distribute(v, mesh, s) for v, s in zip(tree, spec_tree)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else type(tree)(vals)
+    raise TypeError(f"distribute: no spec for the leaf {tree!r}")

@@ -14,10 +14,14 @@ vocabulary on ``torch.distributed``:
     any host, as the reference's ``sharding.abstract_mesh`` is.
   * ``placements(mesh, spec, ndim)`` turns a spec into DTensor placements:
     ``Shard(i)`` on the mesh dims that split tensor dim ``i``,
-    ``Replicate()`` on the others.
+    ``Replicate()`` on the others;
+  * ``NamedSharding(mesh, spec)`` binds a spec to a mesh, as
+    ``jax.sharding.NamedSharding`` does: what the models' and the train
+    step's sharding options (``act_sharding``, ``sp_sharding``,
+    ``microbatch_sharding``, ``grad_sharding``) take.
 
 This module has no counterpart file in the JAX package, which imports
-``P`` from ``jax.sharding``.
+``P`` and ``NamedSharding`` from ``jax.sharding``.
 """
 from __future__ import annotations
 
@@ -163,3 +167,28 @@ def placements(mesh, spec, ndim: int) -> tuple:
                                  "twice")
             out[k] = Shard(i)
     return tuple(out)
+
+
+class NamedSharding:
+    """A ``PartitionSpec`` bound to a mesh (``jax.sharding.NamedSharding``):
+    ``placements(ndim)`` gives the DTensor placements of a tensor of rank
+    ``ndim`` placed by it."""
+
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = P() if spec is None else spec
+
+    def placements(self, ndim: int) -> tuple:
+        return placements(self.mesh, self.spec, ndim)
+
+    def __eq__(self, other):
+        return isinstance(other, NamedSharding) and \
+            self.mesh is other.mesh and self.spec == other.spec
+
+    def __hash__(self):
+        return hash((id(self.mesh), self.spec))
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"

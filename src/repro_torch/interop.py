@@ -30,6 +30,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import _device
+from repro_torch._dtensor import full
 
 
 def from_numpy(tree, *, device=None, dtype=None):
@@ -95,12 +96,13 @@ def params_from_numpy(tree, cfg, device=None):
 def params_to_numpy(params, bfloat16=None):
     """The port's parameters as the JAX package's pytree of numpy arrays
     (``blocks`` stacked on a leading L axis; ``shared_attn``, where the
-    model has one, as it is).  bfloat16 tensors come back as arrays of the
+    model has one, as it is; DTensors gathered whole, a collective every
+    rank of their mesh calls).  bfloat16 tensors come back as arrays of the
     numpy dtype ``bfloat16`` when one is given (for example
     ``jax.numpy.bfloat16``: the bits are carried over exactly), else
     widened to float32 (also exact)."""
     def leaf(t):
-        t = t.detach().cpu()
+        t = full(t.detach()).cpu()
         if t.dtype == torch.bfloat16:
             if bfloat16 is not None:
                 return t.view(torch.int16).numpy().view(bfloat16)

@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch._dtensor import replicated_like
+
 NEG_INF = -1e30
 
 
@@ -34,7 +36,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         mask = (torch.arange(Sk, device=q.device)[None, :]
                 <= torch.arange(Sq, device=q.device)[:, None])
-        logits = torch.where(mask, logits, NEG_INF)
+        logits = torch.where(replicated_like(mask, logits), logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
     return out.reshape(B, Sq, H, D).to(q.dtype)

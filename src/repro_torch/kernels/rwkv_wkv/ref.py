@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch._dtensor import replicated_like
+
 
 def wkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  w: torch.Tensor, u: torch.Tensor,
@@ -25,11 +27,12 @@ def wkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, T, H, N = r.shape
     rf, kf, vf, wf = (a.to(torch.float32) for a in (r, k, v, w))
     uf = u.to(torch.float32)[None, :, :, None]
-    S = torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device) \
+    S = replicated_like(torch.zeros(B, H, N, N, dtype=torch.float32,
+                                    device=r.device), r) \
         if state0 is None else state0.to(torch.float32)
-    out = torch.empty(B, T, H, N, dtype=torch.float32, device=r.device)
+    out = []
     for t in range(T):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]        # (B,H,N,N)
-        out[:, t] = torch.einsum("bhn,bhnm->bhm", rf[:, t], S + uf * kv)
+        out.append(torch.einsum("bhn,bhnm->bhm", rf[:, t], S + uf * kv))
         S = wf[:, t, :, :, None] * S + kv
-    return out.to(r.dtype), S
+    return torch.stack(out, dim=1).to(r.dtype), S

@@ -9,11 +9,14 @@ The group: ``make_solve_mesh`` and ``make_host_mesh`` use the process
 group that exists.  When none does and ``WORLD_SIZE`` is unset or 1, they
 start a single-rank group themselves — NCCL for ``cuda``, gloo for
 ``cpu`` (never gloo on the card) — over a file store in a fresh temporary
-file, so that concurrent test processes do not contend for a port.  With
-``WORLD_SIZE`` above 1 and no group they raise: a multi-rank job starts
-its group itself, with its address, world size and rank
-(``torch.distributed.init_process_group``).  A group started here is
-destroyed at exit if its caller has not destroyed it.  ``make_production_mesh``
+file, so that concurrent test processes do not contend for a port.  Under
+``torchrun`` (``WORLD_SIZE`` above 1 with ``RANK`` and ``MASTER_ADDR``
+set) they start the ``env://`` group of the job, with the same backend
+rule (on ``cuda`` each rank takes the card ``LOCAL_RANK``).  With
+``WORLD_SIZE`` above 1 and neither a group nor that environment they
+raise: a multi-rank job starts its group itself, with its address, world
+size and rank (``torch.distributed.init_process_group``).  A group
+started here is destroyed at exit if its caller has not destroyed it.  ``make_production_mesh``
 raises unless the world holds its 256 (512) ranks, as the JAX package's
 does without the devices.
 
@@ -49,7 +52,9 @@ def _ensure_group(dev: torch.device) -> None:
     if dist.is_initialized():
         return
     world = int(os.environ.get("WORLD_SIZE") or 1)
-    if world > 1:
+    launched = world > 1 and "RANK" in os.environ and \
+        "MASTER_ADDR" in os.environ
+    if world > 1 and not launched:
         raise RuntimeError(
             f"WORLD_SIZE={world} but no process group is running: start it "
             "with torch.distributed.init_process_group(init_method, "
@@ -58,14 +63,19 @@ def _ensure_group(dev: torch.device) -> None:
         if not dist.is_nccl_available():
             raise RuntimeError("a mesh on cuda needs the NCCL backend, "
                                "which this PyTorch build lacks")
-        torch.cuda.set_device(dev.index or 0)
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              if launched else dev.index or 0)
         backend = "nccl"
     else:
         backend = "gloo"
-    fd, path = tempfile.mkstemp(prefix="repro_torch_group_")
-    os.close(fd)
-    dist.init_process_group(backend, store=dist.FileStore(path, 1), rank=0,
-                            world_size=1)
+    path = None
+    if launched:                     # torchrun's env:// rendezvous
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        fd, path = tempfile.mkstemp(prefix="repro_torch_group_")
+        os.close(fd)
+        dist.init_process_group(backend, store=dist.FileStore(path, 1),
+                                rank=0, world_size=1)
     group = dist.group.WORLD
 
     def close():
@@ -73,7 +83,7 @@ def _ensure_group(dev: torch.device) -> None:
         # for its heartbeat monitor, which reads the store's file
         if dist.is_initialized() and dist.group.WORLD is group:
             dist.destroy_process_group()
-        if os.path.exists(path):
+        if path is not None and os.path.exists(path):
             os.unlink(path)
 
     atexit.register(close)

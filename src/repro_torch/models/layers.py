@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import _device
+from repro_torch._dtensor import (is_dtensor, merge_last, replicated_like,
+                                  shard_extent, split_last, whole)
 from repro_torch.configs.base import ArchConfig
 # the reference's plain attention (top-left causal mask), shared with the
 # flash-attention op's CPU path
@@ -111,8 +113,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); cos/sin: (..., seq, head_dim//2)."""
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
-    c = cos[..., :, None, :]
-    s = sin[..., :, None, :]
+    c = replicated_like(cos[..., :, None, :], x)
+    s = replicated_like(sin[..., :, None, :], x)
     out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
     return out.to(x.dtype)
 
@@ -216,9 +218,9 @@ def attention_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
     v = x @ params["w_v"]
     if cfg.qkv_bias:
         q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, Hkv, hd)
-    v = v.reshape(B, S, Hkv, hd)
+    q = split_last(q, H, hd)
+    k = split_last(k, Hkv, hd)
+    v = split_last(v, Hkv, hd)
 
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -242,15 +244,52 @@ def attention_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
         out = _decode_sdpa(q, ck, cv, int(cache_index) + S)
         new_cache = (ck, cv)
     else:
+        if is_dtensor(q):
+            q, k, v = _head_placed(q, k, v)
         if use_kernel:
-            from repro_torch.kernels.flash_attention import ops as fa_ops
-            out = fa_ops.flash_attention(q, k, v, causal=cfg.causal)
+            out = _flash_attention(q, k, v, cfg.causal)
         else:
             out = _sdpa(q, k, v, causal=cfg.causal)
         new_cache = None
 
-    out = out.reshape(B, S, H * hd) @ params["w_o"]
+    out = merge_last(out) @ params["w_o"]
     return out, new_cache
+
+
+def _head_placed(q, k, v):
+    """DTensors q (B, S, H, D), k and v (B, S, Hkv, D) placed for the
+    attention core: per mesh dim, the batch split where q's is, the heads
+    split where q's are and both H and Hkv divide the mesh dim (so a
+    rank's query heads meet their own kv heads), else whole; S and D
+    whole, no partial sums.  DTensor's own choice after the projections
+    may split the flattened (batch · heads) of the products unevenly,
+    which its sharding rules cannot propagate."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    places = []
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        keep = isinstance(p, Shard) and (
+            (p.dim == 0 and q.shape[0] % n == 0) or
+            (p.dim == 2 and H % n == 0 and Hkv % n == 0))
+        places.append(p if keep else Replicate())
+    return tuple(t if tuple(t.placements) == tuple(places)
+                 else t.redistribute(mesh, places) for t in (q, k, v))
+
+
+def _flash_attention(q, k, v, causal: bool):
+    """The flash-attention op; on DTensors (placed by ``_head_placed``),
+    on each rank's own batch rows and heads: the kernel sees the local
+    shards and the output keeps q's placements (``DTensor.from_local``)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    if not is_dtensor(q):
+        return fa_ops.flash_attention(q, k, v, causal=causal)
+    from torch.distributed.tensor import DTensor
+    out = fa_ops.flash_attention(q.to_local(), k.to_local(), v.to_local(),
+                                 causal=causal)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False)
 
 
 def _scatter_cache(cache: torch.Tensor, new: torch.Tensor,
@@ -260,6 +299,22 @@ def _scatter_cache(cache: torch.Tensor, new: torch.Tensor,
     ``lax.dynamic_update_slice`` clamps it.  Returns ``cache``."""
     s, smax = new.shape[1], cache.shape[1]
     start = min(max(int(index), 0), smax - s)
+    if is_dtensor(cache):
+        # the cache's sequence dim may be sharded (decode_state_specs), and
+        # a slice of a sharded dim is a gathered copy, which a write would
+        # miss: each rank writes the new positions that fall in its shard
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = cache.device_mesh
+        new = new.redistribute(mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in cache.placements]).to_local()
+        shape, offset = shard_extent(cache.shape, mesh, cache.placements)
+        lo = max(start, offset[1])
+        hi = min(start + s, offset[1] + shape[1])
+        if lo < hi:
+            cache.to_local()[:, lo - offset[1]:hi - offset[1]] = \
+                new[:, lo - start:hi - start].to(cache.dtype)
+        return cache
     cache[:, start:start + s] = new.to(cache.dtype)
     return cache
 
@@ -273,7 +328,8 @@ def _decode_sdpa(q, k_cache, v_cache, valid_len: int):
                                                        D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg,
                           k_cache.to(torch.float32))
-    mask = torch.arange(Smax, device=q.device) < valid_len
+    mask = replicated_like(torch.arange(Smax, device=q.device) < valid_len,
+                           logits)
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs,
@@ -349,7 +405,7 @@ def mla_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
         q = q_lat @ params["w_uq"]
     else:
         q = x @ params["w_q"]
-    q = q.reshape(B, S, H, dr + dn)
+    q = split_last(q, H, dr + dn)
     q_rope, q_nope = q[..., :dr], q[..., dr:]
     cos, sin = rope_freqs(dr, cfg.rope_theta, positions)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -371,8 +427,8 @@ def mla_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
         new_cache = None
 
     Sk = latent_full.shape[1]
-    k_nope = (latent_full @ params["w_uk"]).reshape(B, Sk, H, dn)
-    v = (latent_full @ params["w_uv"]).reshape(B, Sk, H, dv)
+    k_nope = split_last(latent_full @ params["w_uk"], H, dn)
+    v = split_last(latent_full @ params["w_uv"], H, dv)
 
     scale = 1.0 / math.sqrt(dr + dn)
     logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.to(f32),
@@ -384,11 +440,11 @@ def mla_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
         mask = keys[None, :] <= torch.arange(S, device=x.device)[:, None]
     else:
         mask = keys < valid
-    logits = torch.where(mask, logits, NEG_INF)
+    logits = torch.where(replicated_like(mask, logits), logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     del logits
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(f32))
-    out = out.reshape(B, S, H * dv).to(x.dtype) @ params["w_o"]
+    out = merge_last(out).to(x.dtype) @ params["w_o"]
     return out, new_cache
 
 
@@ -419,7 +475,67 @@ def embedding_init(gen, cfg: ArchConfig, device=None) -> Params:
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens.long()]
+    """The rows of the token table.  On a DTensor table whose vocab is
+    split over one mesh dim (``model``): the Megatron vocab-parallel
+    embedding (``_VocabParallelEmbed``), where DTensor's own masked-partial
+    rule reduces its output once only (the output feeds the residual and
+    the first norm) and computes the table's gradient whole on every rank;
+    the plain path indexes the table."""
+    tab = params["tok"]
+    if not is_dtensor(tab):
+        return tab[tokens.long()]
+    from torch.distributed.tensor import Shard
+    ids = tokens if is_dtensor(tokens) else replicated_like(tokens, tab)
+    split = [i for i, p in enumerate(tab.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    if not split:          # the table whole on every rank: the plain path
+        return tab[ids.long()]
+    if len(split) != 1 or any(isinstance(p, Shard) for i, p in
+                              enumerate(tab.placements) if i != split[0]):
+        return whole(tab, 0, 1)[ids.long()]
+    return _VocabParallelEmbed.apply(tab, ids, split[0])
+
+
+class _VocabParallelEmbed(torch.autograd.Function):
+    """Forward: each rank gathers the rows of its vocab shard (the others
+    zero) and the rows are summed over the vocab's mesh dim ``t`` (one
+    all-reduce); the output keeps the ids' batch split.  Backward: the
+    rank's rows of the table gradient, a partial sum over the mesh dims
+    that split the batch."""
+
+    @staticmethod
+    def forward(ctx, tab, ids, t):
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = tab.device_mesh
+        rows = [Replicate() if i == t else p
+                for i, p in enumerate(ids.placements)]
+        idx = ids.redistribute(mesh, rows).to_local().long()
+        local = tab.to_local()
+        idx = idx - shard_extent(tab.shape, mesh, tab.placements)[1][0]
+        inside = (idx >= 0) & (idx < local.shape[0])
+        idx = idx.clamp(0, local.shape[0] - 1)
+        out = F.embedding(idx, local) * inside[..., None].to(local.dtype)
+        out = funcol.all_reduce(out, "sum", (mesh, t))
+        ctx.save_for_backward(idx, inside)
+        ctx.spec = (mesh, t, tuple(rows), tuple(local.shape), local.dtype)
+        return DTensor.from_local(out, mesh, rows, run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        idx, inside = ctx.saved_tensors
+        mesh, t, rows, shape, dtype = ctx.spec
+        g = grad.redistribute(mesh, rows).to_local()
+        g = g * inside[..., None].to(g.dtype)
+        local = torch.zeros(shape, dtype=dtype, device=g.device)
+        local.index_put_((idx,), g.to(dtype), accumulate=True)
+        places = [Shard(0) if i == t else
+                  Partial() if isinstance(p, Shard) else Replicate()
+                  for i, p in enumerate(rows)]
+        return DTensor.from_local(local, mesh, places,
+                                  run_check=False), None, None
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:

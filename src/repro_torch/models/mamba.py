@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import _device
+from repro_torch._dtensor import merge_last, replicated_like, split_last
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.models.layers import (dense_init, rmsnorm, rmsnorm_init,
                                        torch_dtype)
@@ -92,7 +93,8 @@ def ssd_scan_ref(x, a, B, C, D, state0=None, chunk: int = 64):
     Nst = B.shape[-1]
     f32 = torch.float32
     if state0 is None:
-        state0 = torch.zeros(Bb, H, Nst, P, dtype=f32, device=x.device)
+        state0 = replicated_like(torch.zeros(Bb, H, Nst, P, dtype=f32,
+                                             device=x.device), x)
     assert T % chunk == 0, (T, chunk)
     nc = T // chunk
 
@@ -111,7 +113,8 @@ def ssd_scan_ref(x, a, B, C, D, state0=None, chunk: int = 64):
                                  device=x.device))[None, None, :, :, None]
     # mask the EXPONENT (not the value): exp of the masked upper triangle
     # overflows, and inf · 0 = nan under a gradient
-    decay = torch.exp(torch.where(mask, rel, -math.inf))
+    decay = torch.exp(torch.where(replicated_like(mask, rel), rel,
+                                  -math.inf))
     cb = torch.einsum("bnis,bnjs->bnij", Cf, Bf)              # (Bb,nc,L,L)
     w_ij = cb[..., None] * decay                              # (Bb,nc,L,L,H)
     y_intra = torch.einsum("bnijh,bnjhp->bnihp", w_ij, xf)
@@ -158,7 +161,7 @@ def mamba_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
     conv_state = None if state is None else state[0]
     xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                  conv_state)
-    xs = xbc[..., :d_inner].reshape(B_, T, nheads, P)
+    xs = split_last(xbc[..., :d_inner], nheads, P)
     Bmat = xbc[..., d_inner:d_inner + Nst]
     Cmat = xbc[..., d_inner + Nst:]
 
@@ -171,7 +174,7 @@ def mamba_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
         chunk = 1 if T == 1 else math.gcd(T, chunk) or 1
     y, new_ssm = ssd_scan_ref(x_scaled, a, Bmat, Cmat, params["D"],
                               ssm_state, chunk=chunk)
-    y = y.reshape(B_, T, d_inner).to(x.dtype)
+    y = merge_last(y).to(x.dtype)
     y = rmsnorm(params["norm"], y, cfg.norm_eps) * F.silu(z)
     out = y @ params["w_out"]
     return out, (new_conv, new_ssm)

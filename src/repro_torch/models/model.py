@@ -7,9 +7,49 @@ that take embeddings), ``moe`` (GQA or MLA attention with an MoE MLP:
 ``hybrid`` (Zamba2: a Mamba-2 trunk and ONE weight-shared attention + MLP
 block applied after every ``SHARED_ATTN_EVERY`` trunk layers and after the
 last, shorter segment).  ``loss_fn`` is the training loss (float32
-log-softmax cross-entropy plus the MoE aux term).  The sharding
-constraints of ``forward`` (``act_sharding``, ``sp_sharding``) raise
-``NotImplementedError`` until training on a mesh (ROADMAP A.12c).
+log-softmax cross-entropy plus the MoE aux term).
+
+On a mesh the parameters are DTensors placed by
+``distributed.sharding.params_specs`` (``sharding.distribute``), the
+inputs DTensors placed by ``batch_spec``, and every family runs as it
+does on one device: DTensor's sharding rules choose each operation's
+collectives, as GSPMD does for the reference.  ``act_sharding`` and
+``sp_sharding`` (``distributed.spec.NamedSharding``s) redistribute the
+activations where the reference calls ``with_sharding_constraint``: after
+the embedding, after each trunk block (``sp_sharding``; not in the
+hybrid's segments, as there) and before the final norm.  Where DTensor
+has no usable rule, or its greedy per-operation choice would change the
+layout from layer to layer (GSPMD carries the reference's constraints
+through its scan body), the model places tensors itself
+(``repro_torch._dtensor``), each place tested on gloo ranks:
+
+  * each block's weights are gathered over the mesh dims that split the
+    batch (ZeRO-3; their model-axis split stays), a row-parallel output
+    is reduced with Megatron's "g" (``_dtensor.reduced``: an identity
+    gradient), and without ``sp_sharding`` the residual after every block
+    takes ``act_sharding`` (no value changes);
+  * the vocab-parallel embedding and cross-entropy on each rank's vocab
+    shard (``layers._VocabParallelEmbed``, ``_VocabParallelNLL``):
+    DTensor's masked-partial embedding reduces its output once only and
+    cannot take a partial gradient, and its ``gather`` on a split vocab
+    fails to apply its mask;
+  * a reshape that unflattens a split dim the mesh does not divide (20
+    heads on 16 ranks, RWKV-6's 5 mixing targets) gathers that dim first,
+    forward and backward (``_dtensor.split_last`` / ``merge_last``), and
+    the attention's q, k and v are placed for its core
+    (``layers._head_placed``);
+  * MoE expert products: the shared (N, d) rows expanded over E before
+    the batched product (the backward of ``matmul``'s own broadcast views
+    a non-contiguous shard; ``moe._experts``);
+  * tensors made from nothing (positions, rotary tables, causal masks,
+    zero scan states) join as replicated DTensors
+    (``_dtensor.replicated_like``); a decode writes each rank's own cache
+    positions (``layers._scatter_cache``).
+
+A split over a mesh dim of one rank is no split (``_dtensor.effective``):
+on a mesh of one rank every operation runs as the plain path does.  The
+flash-attention and WKV ops (``use_kernel``, forward only) run on each
+rank's local heads (``layers._flash_attention``, ``rwkv._wkv_op``).
 
 Rematerialisation (``remat=True``, the reference's default) checkpoints
 each trunk block as the reference's ``jax.checkpoint`` does — the
@@ -54,6 +94,9 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch import _device
+from repro_torch._dtensor import (constrain, gathered_over_batch, is_dtensor,
+                                  reduced, shard_extent, whole)
+from repro_torch.distributed.spec import NamedSharding
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -132,12 +175,13 @@ def init_params_abstract(cfg: ArchConfig) -> Params:
 
 def _dense_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
                  use_kernel: bool, moe_dispatch: str = "dense"):
+    bp = gathered_over_batch(bp, h)
     x = L.rmsnorm(bp["ln1"], h, cfg.norm_eps)
     if cfg.use_mla:
         a, _ = L.mla_apply(bp["attn"], cfg, x)
     else:
         a, _ = L.attention_apply(bp["attn"], cfg, x, use_kernel=use_kernel)
-    h = h + a
+    h = h + reduced(a)
     m_in = L.rmsnorm(bp["ln2"], h, cfg.norm_eps)
     if cfg.moe:
         if moe_dispatch == "sparse":
@@ -146,35 +190,39 @@ def _dense_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
             mo, aux = X.moe_apply_dense(bp["mlp"], cfg, m_in)
     else:
         mo, aux = L.mlp_apply(bp["mlp"], m_in, cfg.mlp_activation), 0.0
-    return h + mo, aux
+    return h + reduced(mo), aux
 
 
 def _rwkv_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
                 use_kernel: bool):
+    bp = gathered_over_batch(bp, h)
     a, _ = R.time_mix_apply(bp["tm"], cfg,
                             L.rmsnorm(bp["ln1"], h, cfg.norm_eps),
                             use_kernel=use_kernel)
-    h = h + a
+    h = h + reduced(a)
     c, _ = R.channel_mix_apply(bp["cm"], cfg,
                                L.rmsnorm(bp["ln2"], h, cfg.norm_eps))
-    return h + c, 0.0
+    return h + reduced(c), 0.0
 
 
 def _mamba_block(bp: Params, cfg: ArchConfig, h: torch.Tensor):
+    bp = gathered_over_batch(bp, h)
     a, _ = M.mamba_apply(bp["mamba"], cfg,
                          L.rmsnorm(bp["ln1"], h, cfg.norm_eps))
-    return h + a, 0.0
+    return h + reduced(a), 0.0
 
 
 def _shared_attn_block(sp: Params, cfg: ArchConfig, h: torch.Tensor,
                        use_kernel: bool, kv_cache=None, cache_index=None):
+    sp = gathered_over_batch(sp, h)
     a, cache = L.attention_apply(sp["attn"], cfg,
                                  L.rmsnorm(sp["ln1"], h, cfg.norm_eps),
                                  kv_cache=kv_cache, cache_index=cache_index,
                                  use_kernel=use_kernel)
-    h = h + a
-    return h + L.mlp_apply(sp["mlp"], L.rmsnorm(sp["ln2"], h, cfg.norm_eps),
-                           cfg.mlp_activation), cache
+    h = h + reduced(a)
+    return h + reduced(L.mlp_apply(
+        sp["mlp"], L.rmsnorm(sp["ln2"], h, cfg.norm_eps),
+        cfg.mlp_activation)), cache
 
 
 def _segments(cfg: ArchConfig):
@@ -242,12 +290,12 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
     ``moe_apply_sparse_gather``, anything else with dense dispatch; a
     model without MoE ignores it.  ``remat`` checkpoints each trunk block
     under ``REMAT_POLICIES[remat_policy]`` when autograd records (see the
-    module docstring).  ``act_sharding`` and ``sp_sharding`` raise
-    ``NotImplementedError`` until training on a mesh (ROADMAP A.12c)."""
-    if act_sharding is not None or sp_sharding is not None:
-        raise NotImplementedError("sharding constraints come with training "
-                                  "on a mesh (ROADMAP A.12c)")
-    h = _embed_inputs(params, cfg, inputs)
+    module docstring).  ``act_sharding`` places the (B, S, d) activations
+    after the embedding and before the final norm; ``sp_sharding`` the
+    residual after every trunk block (sequence parallelism), both
+    ``NamedSharding``s; without ``sp_sharding`` the residual after every
+    block takes ``act_sharding`` (see the module docstring)."""
+    h = constrain(_embed_inputs(params, cfg, inputs), act_sharding)
     if cfg.family == "ssm":
         block = lambda bp, h: _rwkv_block(bp, cfg, h, use_kernel)
     elif cfg.family == "hybrid":
@@ -259,18 +307,25 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
         block = _rematted(block, remat_policy)
 
     blocks = params["blocks"]
+    # one layout for the residual stream after every block (see the
+    # module docstring)
+    between = sp_sharding if sp_sharding is not None else act_sharding
     auxs = []
     if cfg.family == "hybrid":
         for start, end in _segments(cfg):
             for bp in blocks[start:end]:
                 h, _ = block(bp, h)
+                h = constrain(h, act_sharding)
             h, _ = _shared_attn_block(params["shared_attn"], cfg, h,
                                       use_kernel)
+            h = constrain(h, act_sharding)
     else:
         for bp in blocks:
             h, aux = block(bp, h)
+            h = constrain(h, between)
             auxs.append(aux)
-    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = L.rmsnorm(params["final_norm"], constrain(h, act_sharding),
+                  cfg.norm_eps)
     aux_total = torch.stack(auxs).sum() if cfg.moe else 0.0
     return L.unembed(params["embed"], h), aux_total
 
@@ -286,12 +341,80 @@ def loss_fn(params: Params, cfg: ArchConfig, inputs, labels,
                           remat_policy=remat_policy,
                           sp_sharding=sp_sharding,
                           moe_dispatch=moe_dispatch)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        nll = _vocab_parallel_nll(logits.to(torch.float32), labels.long())
+    else:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     loss = torch.mean(nll)
     if cfg.moe:
         loss = loss + cfg.moe.router_aux_loss * aux / cfg.num_layers
     return loss
+
+
+def _vocab_parallel_nll(lf, labels):
+    """−log softmax(lf)[label] of float32 DTensor logits (B, S, V).  With
+    the vocab split over one mesh dim (the column-parallel unembed), the
+    Megatron vocab-parallel cross-entropy (``_VocabParallelNLL``) on each
+    rank's shard: no rank gathers the vocab, and the logits' gradient keeps
+    their placements.  Otherwise the vocab is gathered and the plain
+    formula runs on DTensors."""
+    from torch.distributed.tensor import Shard
+    split = [i for i, p in enumerate(lf.placements)
+             if isinstance(p, Shard) and p.dim == lf.ndim - 1]
+    if len(split) != 1 or any(isinstance(p, Shard) and p.dim != 0
+                              for i, p in enumerate(lf.placements)
+                              if i != split[0]):
+        logp = torch.log_softmax(whole(lf, -1), dim=-1)
+        lab = labels if is_dtensor(labels) else \
+            constrain(labels, NamedSharding(lf.device_mesh, None))
+        return -torch.gather(logp, -1, lab[..., None])[..., 0]
+    return _VocabParallelNLL.apply(lf, labels, split[0])
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Forward: each rank's max, sum of exps and label logit over its vocab
+    shard, reduced over the vocab's mesh dim ``t`` (a max and two sums of
+    (B, S) values); the output keeps the batch split, whole over ``t``.
+    Backward: softmax − one-hot on the rank's shard."""
+
+    @staticmethod
+    def forward(ctx, lf, labels, t):
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = lf.device_mesh
+        rows = [Replicate() if i == t else p
+                for i, p in enumerate(lf.placements)]
+        lab = labels if is_dtensor(labels) else \
+            constrain(labels, NamedSharding(mesh, None))
+        lab = lab.redistribute(mesh, rows).to_local()
+        local = lf.to_local()
+        start = shard_extent(lf.shape, mesh, lf.placements)[1][-1]
+        idx = lab - start
+        inside = (idx >= 0) & (idx < local.shape[-1])
+        idx = idx.clamp(0, local.shape[-1] - 1)
+        group = (mesh, t)
+        m = funcol.all_reduce(local.amax(-1), "max", group)
+        e = torch.exp(local - m[..., None])
+        total = funcol.all_reduce(e.sum(-1), "sum", group)
+        picked = funcol.all_reduce(
+            torch.gather(local, -1, idx[..., None])[..., 0] * inside,
+            "sum", group)
+        ctx.save_for_backward(e, total, idx, inside)
+        ctx.spec = (mesh, tuple(lf.placements), tuple(rows))
+        out = torch.log(total) + m - picked
+        return DTensor.from_local(out, mesh, rows, run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+        e, total, idx, inside = ctx.saved_tensors
+        mesh, places, rows = ctx.spec
+        g = grad.redistribute(mesh, rows).to_local()
+        d = e / total[..., None]
+        d.scatter_add_(-1, idx[..., None], -inside[..., None].to(d.dtype))
+        return DTensor.from_local(d * g[..., None], mesh, places,
+                                  run_check=False), None, None
 
 
 # ---------------------------------------------------------------------------

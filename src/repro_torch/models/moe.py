@@ -25,6 +25,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch._dtensor import is_dtensor
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.layers import dense_init, torch_dtype
 
@@ -82,7 +83,11 @@ def _shared(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _experts(params: Params, xe: torch.Tensor) -> torch.Tensor:
     """SwiGLU of every expert on its rows: xe (E, n, d) or (n, d), shared
-    by all experts -> (E, n, f)."""
+    by all experts -> (E, n, f).  On DTensors the shared rows are expanded
+    over E first: the backward of ``matmul``'s own broadcast views a
+    non-contiguous shard, which fails."""
+    if is_dtensor(xe) and xe.ndim == 2:
+        xe = xe.expand(params["w_gate"].shape[0], *xe.shape)
     return F.silu(torch.matmul(xe, params["w_gate"])) \
         * torch.matmul(xe, params["w_up"])
 

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import _device
+from repro_torch._dtensor import (is_dtensor, merge_last, replicated_like,
+                                  split_last)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rwkv_wkv.ref import wkv_scan_ref
 from repro_torch.models.layers import _uniform, dense_init, torch_dtype
@@ -102,7 +104,8 @@ def wkv_chunked(r, k, v, w, u, state0=None, chunk: int = 32):
     logw = torch.log(torch.clamp_min(w.to(f32), 1e-38))
     uf = u.to(f32)
     if state0 is None:
-        state0 = torch.zeros(B, H, N, N, dtype=f32, device=r.device)
+        state0 = replicated_like(torch.zeros(B, H, N, N, dtype=f32,
+                                             device=r.device), r)
     nc = T // chunk
 
     shape5 = (B, nc, chunk, H, N)
@@ -117,7 +120,7 @@ def wkv_chunked(r, k, v, w, u, state0=None, chunk: int = 32):
     scores = torch.einsum("bnchx,bnjhx->bnhcj", rt, kt)     # (B,nc,H,C,C)
     mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                  device=r.device), diagonal=-1)
-    scores = torch.where(mask, scores, 0.0)
+    scores = torch.where(replicated_like(mask, scores), scores, 0.0)
     out_intra = torch.einsum("bnhcj,bnjhm->bnchm", scores, vf)
     bonus = torch.einsum("bnchx,bnchx->bnch", rf * uf, kf)
     out_intra = out_intra + bonus[..., None] * vf
@@ -128,13 +131,42 @@ def wkv_chunked(r, k, v, w, u, state0=None, chunk: int = 32):
     r_state = rf * torch.exp(clw)
 
     S = state0.to(f32)
-    out_inter = torch.empty_like(out_intra)
+    out_inter = []
     for n in range(nc):
-        out_inter[:, n] = torch.einsum("bchx,bhxm->bchm", r_state[:, n], S)
+        out_inter.append(torch.einsum("bchx,bhxm->bchm", r_state[:, n], S))
         S = torch.exp(total_lw[:, n])[..., None] * S + chunk_kv[:, n]
+    out_inter = torch.stack(out_inter, dim=1)
 
     out = (out_intra + out_inter).reshape(B, T, H, N)
     return out.to(r.dtype), S
+
+
+def _wkv_op(r, k, v, w, u, state0):
+    """The WKV op; on DTensors, on each rank's own batch rows and heads.
+
+    r, k, v and w are brought to one placement with T and N whole (and no
+    partial sums); u (H, N) and state0 (B, H, N, N) are then split as the
+    heads (and the batch) are, so each rank's kernel sees the bonus and
+    state of its own heads.  The outputs keep r's placements."""
+    from repro_torch.kernels.rwkv_wkv import ops as wkv_ops
+    if not is_dtensor(r):
+        return wkv_ops.wkv(r, k, v, w, u, state0)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = r.device_mesh
+    # per mesh dim: the batch or the heads split (as r's), else whole
+    places = [p if isinstance(p, Shard) and p.dim in (0, 2) else
+              Replicate() for p in r.placements]
+    r, k, v, w = (t.redistribute(mesh, places) for t in (r, k, v, w))
+    head = [Shard(0) if p == Shard(2) else Replicate() for p in places]
+    state = [Shard({0: 0, 2: 1}[p.dim]) if isinstance(p, Shard) else p
+             for p in places]
+    u = u.redistribute(mesh, head).to_local()
+    if state0 is not None:
+        state0 = state0.redistribute(mesh, state).to_local()
+    out, s = wkv_ops.wkv(r.to_local(), k.to_local(), v.to_local(),
+                         w.to_local(), u, state0)
+    return (DTensor.from_local(out, mesh, places, run_check=False),
+            DTensor.from_local(s, mesh, state, run_check=False))
 
 
 def time_mix_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -149,25 +181,24 @@ def time_mix_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
 
     delta = token_shift(x, x_prev) - x
     # data-dependent lerp (ddlerp): 5 mixing vectors from a small LoRA
-    lora = torch.tanh(x @ params["mix_lora_a"]).reshape(B, T, 5, -1)
+    lora = split_last(torch.tanh(x @ params["mix_lora_a"]), 5, -1)
     mix = params["mix_base"][None, None] + torch.einsum(
         "btfl,fld->btfd", lora, params["mix_lora_b"])
     xw, xk, xv, xr, xg = [x + delta * mix[:, :, i] for i in range(5)]
 
-    r = (xr @ params["w_r"]).reshape(B, T, H, N)
-    k = (xk @ params["w_k"]).reshape(B, T, H, N)
-    v = (xv @ params["w_v"]).reshape(B, T, H, N)
+    r = split_last(xr @ params["w_r"], H, N)
+    k = split_last(xk @ params["w_k"], H, N)
+    v = split_last(xv @ params["w_v"], H, N)
     g = F.silu(xg @ params["w_g"])
 
     # data-dependent decay w_t = exp(-exp(base + lora(xw))), float32
     dec = params["decay_base"][None, None] + (
         torch.tanh(xw @ params["decay_lora_a"]) @ params["decay_lora_b"]
     ).to(torch.float32)
-    w = torch.exp(-torch.exp(dec)).reshape(B, T, H, N)
+    w = split_last(torch.exp(-torch.exp(dec)), H, N)
 
     if use_kernel:
-        from repro_torch.kernels.rwkv_wkv import ops as wkv_ops
-        out, new_wkv = wkv_ops.wkv(r, k, v, w, params["bonus"], wkv_state)
+        out, new_wkv = _wkv_op(r, k, v, w, params["bonus"], wkv_state)
     elif T > 1 and T % 32 == 0:
         out, new_wkv = wkv_chunked(r, k, v, w, params["bonus"], wkv_state)
     else:
@@ -178,7 +209,7 @@ def time_mix_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
     mu = outf.mean(dim=-1, keepdim=True)
     var = outf.var(dim=-1, keepdim=True, correction=0)
     outf = (outf - mu) * torch.rsqrt(var + 64e-5)
-    out = outf.reshape(B, T, d) * params["ln_x"]["scale"].to(torch.float32) \
+    out = merge_last(outf) * params["ln_x"]["scale"].to(torch.float32) \
         + params["ln_x"]["bias"].to(torch.float32)
     out = (out.to(x.dtype) * g) @ params["w_o"]
     return out, (x[:, -1], new_wkv)

@@ -8,10 +8,23 @@ reduction's bytes 4x against float32.  Rounding is half to even, as
 ``jnp.round``.
 
 ``roundtrip`` is the train step's transform (quantise, then dequantise,
-around the gradient mean).  As the rest of the port's train state, the
-error state is updated in place: ``compress_tree`` and ``roundtrip`` write
-the new residual into the error tensors they are given, and ``roundtrip``
-writes the dequantised gradients into the gradient tensors.
+around the gradient mean).
+
+On a mesh a gradient leaf is a DTensor, and a rank's shard is not a run of
+the leaf's flat (row-major) order: a shard of dim 1 takes a piece of every
+row, and no shard starts on a chunk boundary in general.  The chunks stay
+the reference's, over the global leaf: each element's chunk is its global
+flat index // ``CHUNK`` (from the shard's offset), each rank takes the
+max |x| of its elements per chunk, a max over the mesh dims that split
+the leaf gives every chunk its global max, and each rank then quantises
+its own elements with their chunk's scale, bit for bit the reference's
+(``_roundtrip_shard``).  ``compress_tree`` and ``decompress_tree`` (the
+payload in the reference's global chunk layout) take whole tensors.
+
+As the rest of the port's train state, the error state is updated in
+place: ``compress_tree`` and ``roundtrip`` write the new residual into the
+error tensors they are given, and ``roundtrip`` writes the dequantised
+gradients into the gradient tensors.
 """
 from __future__ import annotations
 
@@ -19,6 +32,8 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch._dtensor import is_dtensor, shard_extent
 
 
 class Compressed(NamedTuple):
@@ -49,8 +64,10 @@ def _dequantize(c: Compressed, shape, dtype) -> torch.Tensor:
 
 
 def init_error_state(grads: Any) -> Any:
+    """Zero float32 residuals shaped (and placed) as ``grads``."""
     return pytree.tree_map(
-        lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
+        lambda g: torch.zeros_like(g, dtype=torch.float32,
+                                   memory_format=torch.contiguous_format),
         grads)
 
 
@@ -61,6 +78,49 @@ def _one(g: torch.Tensor, e: torch.Tensor):
     recon = _dequantize(c, g.shape, torch.float32)
     e.copy_(target - recon)
     return c, recon
+
+
+def _chunk_ids(x, chunk: int = CHUNK) -> torch.Tensor:
+    """The reference's chunk of each element of a DTensor's local shard:
+    its global flat (row-major) index // ``chunk``."""
+    shape, offset = shard_extent(x.shape, x.device_mesh, x.placements)
+    dev = x.to_local().device
+    flat = torch.zeros((), dtype=torch.int64, device=dev)
+    stride = 1
+    for dim in reversed(range(x.ndim)):
+        idx = torch.arange(shape[dim], dtype=torch.int64, device=dev) \
+            + offset[dim]
+        flat = flat + (idx * stride).reshape(
+            (-1,) + (1,) * (x.ndim - 1 - dim))
+        stride *= x.shape[dim]
+    return torch.div(flat.expand(tuple(shape)), chunk,
+                     rounding_mode="floor")
+
+
+def _roundtrip_shard(g, e) -> None:
+    """``roundtrip`` of one DTensor leaf on each rank's shard, with the
+    reference's global chunks (see the module docstring); the
+    reconstruction into ``g``'s shard, the residual into ``e``'s."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    gl, el = g.to_local(), e.to_local()
+    target = gl.to(torch.float32) + el
+    ids = _chunk_ids(g)
+    n_chunks = -(-g.numel() // CHUNK)
+    amax = torch.zeros(n_chunks, dtype=torch.float32,
+                       device=target.device).scatter_reduce_(
+        0, ids.reshape(-1), target.abs().reshape(-1), "amax")
+    split = [isinstance(p, Shard) for p in g.placements]
+    if any(split):
+        amax = DTensor.from_local(amax, g.device_mesh, [
+            Partial("max") if s else Replicate() for s in split],
+            run_check=False).full_tensor()
+    scale = amax / 127.0
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(target / safe[ids]), -127, 127).to(
+        torch.int8)
+    recon = q.to(torch.float32) * scale[ids]
+    el.copy_(target - recon)
+    gl.copy_(recon)
 
 
 @torch.no_grad()
@@ -88,5 +148,8 @@ def roundtrip(grads: Any, err: Any) -> Tuple[Any, Any]:
     is written into ``grads`` (in their type) and the residual into
     ``err``; returns ``(grads, err)``."""
     for g, e in zip(pytree.tree_leaves(grads), pytree.tree_leaves(err)):
-        g.copy_(_one(g, e)[1])
+        if is_dtensor(g):
+            _roundtrip_shard(g, e)
+        else:
+            g.copy_(_one(g, e)[1])
     return grads, err

@@ -19,6 +19,17 @@ and the new float32 moments at once (31.6 GB more), which the card does
 not have.  Each update runs as ``torch._foreach_*`` operations over
 consecutive groups of leaves (``GROUP_ELEMENTS``), one launch a group and
 operation in place of one a leaf.
+
+On a mesh the leaves are DTensors.  A gradient, its parameter and the
+parameter's moments share placements (the train step places each
+gradient as its parameter), and every update is elementwise, so the
+``torch._foreach_*`` operations run on each rank's own shards
+(``to_local``); the updates come back as DTensors placed as the
+parameters.  ``global_norm`` is the norm of the whole tree: each rank's
+sum of squares of its shards, summed over the mesh dims that split the
+leaf (a Partial sum, all-reduced), so every rank gets the same global
+norm.  The moments are made with ``zeros_like``, so they take their
+parameters' placements; the step stays a plain 0-d tensor.
 """
 from __future__ import annotations
 
@@ -27,6 +38,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch._dtensor import is_split, like, local
 
 
 class OptState(NamedTuple):
@@ -43,8 +56,9 @@ class Optimizer:
 
 def _tree_zeros(params, dtype=None):
     return pytree.tree_map(
-        lambda p: torch.zeros(p.shape, dtype=dtype or p.dtype,
-                              device=p.device), params)
+        lambda p: torch.zeros_like(p, dtype=dtype or p.dtype,
+                                   memory_format=torch.contiguous_format),
+        params)
 
 
 def _step_zero(params) -> torch.Tensor:
@@ -63,9 +77,11 @@ GROUP_ELEMENTS = 1 << 27
 
 def _groups(*trees):
     """The leaves of trees shaped alike, zipped, in consecutive groups of
-    at most ``GROUP_ELEMENTS`` elements: a tuple of lists, one a tree."""
+    at most ``GROUP_ELEMENTS`` elements: a tuple of lists, one a tree.
+    A DTensor leaf comes as its rank's shard."""
     group, size = [], 0
-    for row in zip(*(pytree.tree_leaves(t) for t in trees)):
+    for row in zip(*([local(x) for x in pytree.tree_leaves(t)]
+                     for t in trees)):
         n = row[0].numel()
         if group and size + n > GROUP_ELEMENTS:
             yield tuple(map(list, zip(*group)))
@@ -77,10 +93,32 @@ def _groups(*trees):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """√(Σ over leaves of Σ l²), each leaf reduced in float32."""
-    norms = torch._foreach_norm(pytree.tree_leaves(tree), 2,
-                                dtype=torch.float32)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """√(Σ over leaves of Σ l²), each leaf reduced in float32.  On DTensor
+    leaves a plain tensor, the same on every rank (see the module
+    docstring)."""
+    leaves = pytree.tree_leaves(tree)
+    if not any(is_split(x) for x in leaves):
+        # every leaf whole on every rank: the plain formula, bit for bit
+        norms = torch._foreach_norm([local(x) for x in leaves], 2,
+                                    dtype=torch.float32)
+        return torch.linalg.vector_norm(torch.stack(norms))
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    # the leaves' local sums of squares, summed per set of splitting dims
+    by_split = {}
+    for x in leaves:
+        split = tuple(isinstance(p, Shard) for p in x.placements) \
+            if is_split(x) else None
+        sq = torch.linalg.vector_norm(local(x), dtype=torch.float32) ** 2
+        by_split[split] = by_split.get(split, 0.0) + sq
+    mesh = next(x.device_mesh for x in leaves if is_split(x))
+    total = 0.0
+    for split, sq in by_split.items():
+        if split is not None and any(split):
+            sq = DTensor.from_local(sq, mesh, [
+                Partial() if s else Replicate() for s in split],
+                run_check=False).full_tensor()
+        total = total + sq
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -100,9 +138,10 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _advance(state: OptState) -> torch.Tensor:
-    """Add one to ``state.step`` in place; returns it."""
+    """Add one to ``state.step`` in place; returns it (a replicated
+    DTensor step as its local value)."""
     state.step.add_(1)
-    return state.step
+    return local(state.step)
 
 
 def _cast(xs, dtype):
@@ -145,8 +184,7 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
                 _cast(p, state_dtype), weight_decay))
             torch._foreach_mul_(u, -lr_t)
             updates += [x.to(q.dtype) for x, q in zip(u, p)]
-        spec = pytree.tree_structure(params)
-        return pytree.tree_unflatten(updates, spec), state
+        return _like_params(updates, params), state
 
     return Optimizer(init=init, update=update)
 
@@ -175,8 +213,7 @@ def lion(lr: Callable | float, b1: float = 0.9, b2: float = 0.99,
             torch._foreach_add_(m, torch._foreach_mul(gf, 1 - b2))
             torch._foreach_mul_(u, -lr_t)
             updates += [x.to(q.dtype) for x, q in zip(u, p)]
-        spec = pytree.tree_structure(params)
-        return pytree.tree_unflatten(updates, spec), state
+        return _like_params(updates, params), state
 
     return Optimizer(init=init, update=update)
 
@@ -201,10 +238,18 @@ def sgd(lr: Callable | float, momentum: float = 0.9,
                 if nesterov else m
             u = torch._foreach_mul(u, -lr_t)
             updates += [x.to(q.dtype) for x, q in zip(u, p)]
-        spec = pytree.tree_structure(params)
-        return pytree.tree_unflatten(updates, spec), state
+        return _like_params(updates, params), state
 
     return Optimizer(init=init, update=update)
+
+
+def _like_params(updates, params):
+    """The per-leaf updates (each rank's shards) as a tree like
+    ``params``, DTensors placed as the parameters."""
+    leaves = pytree.tree_leaves(params)
+    return pytree.tree_unflatten([like(u, p) for u, p in zip(updates,
+                                                             leaves)],
+                                 pytree.tree_structure(params))
 
 
 @torch.no_grad()

@@ -25,10 +25,24 @@ Differences of form from the reference:
     kernels are (neither has a derivative rule there), so
     ``TrainStepConfig(use_kernel=True)`` raises ``NotImplementedError``;
     training runs the plain attention and recurrence, as the reference's
-    default does.
-  * The mesh options (``microbatch_sharding``, ``grad_sharding``,
-    ``act_sharding``, ``sp_sharding``) raise ``NotImplementedError`` until
-    training on a mesh (ROADMAP A.12c).
+    default does.  A mesh option that is not a ``NamedSharding`` raises
+    ``TypeError``.
+  * On a mesh the state is DTensors: the parameters placed by
+    ``distributed.sharding.params_specs`` (``sharding.distribute``), the
+    moments and the error feedback by the same specs, the step a plain
+    0-d tensor every rank holds alike (replicated).  ``train_step`` places
+    numpy or plain batches by ``batch_spec`` (batch over ``data``, or
+    ``("pod", "data")`` on a mesh with a ``pod`` axis) where the
+    reference's ``jit`` takes ``in_shardings``; DTensor batches keep
+    theirs.  The mesh options are ``distributed.spec.NamedSharding``s:
+    ``microbatch_sharding`` places the (mb, b, ...) split,
+    ``act_sharding`` / ``sp_sharding`` go to ``forward``, and
+    ``grad_sharding`` (a tree of them shaped like the parameters) places
+    each microbatch's gradient and the accumulator, so the partial sums
+    over the batch land sharded (a reduce-scatter).  Without it each
+    gradient takes its parameter's placements, which the optimizer needs
+    (it updates each rank's shards: ``optim.optimizer``).  The loss and
+    the gradient norm come back as plain tensors, the same on every rank.
   * The metrics stay device tensors; ``train_loop`` reads them on the host
     only at ``log_every``, and its straggler monitor waits on
     ``torch.cuda.synchronize()`` where the reference blocks on the loss.
@@ -46,7 +60,10 @@ import torch
 from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
+from repro_torch._dtensor import constrain, full, is_dtensor, local, whole
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import ShardingRules, batch_spec
+from repro_torch.distributed.spec import NamedSharding
 from repro_torch.models import model as mdl
 from repro_torch.optim import grad_compression as gc
 from repro_torch.optim import optimizer as opt
@@ -68,13 +85,17 @@ class TrainStepConfig:
     remat: bool = True
     remat_policy: str = "nothing"   # nothing | dots | dots_no_batch
     use_kernel: bool = False        # raises: the kernels are forward only
-    # the mesh options: each raises until training on a mesh (A.12c)
+    # NamedSharding of the microbatched (mb, b, ...) inputs
     microbatch_sharding: Optional[Any] = None
+    # NamedSharding of the (B, S, d) activations after the embedding
     act_sharding: Optional[Any] = None
+    # NamedSharding of the residual between blocks (sequence parallelism)
     sp_sharding: Optional[Any] = None
     moe_dispatch: str = "dense"     # dense | sparse (gather-based, capacity)
     # type of the gradient accumulator over microbatches
     grad_accum_dtype: Any = torch.float32
+    # tree of NamedShardings (like the params) for each microbatch's
+    # gradient and the accumulator: the partial sums land sharded
     grad_sharding: Optional[Any] = None
 
 
@@ -105,11 +126,51 @@ def _check(tcfg: TrainStepConfig) -> None:
             "training through the hand-written kernels: they are forward "
             "only, as the reference's Pallas kernels (whose gradient fails "
             "in the Pallas JVP rule); train with use_kernel=False")
-    for name in ("microbatch_sharding", "grad_sharding", "act_sharding",
-                 "sp_sharding"):
-        if getattr(tcfg, name) is not None:
-            raise NotImplementedError(f"TrainStepConfig.{name} comes with "
-                                      "training on a mesh (ROADMAP A.12c)")
+    for name in ("microbatch_sharding", "act_sharding", "sp_sharding"):
+        value = getattr(tcfg, name)
+        if value is not None and not isinstance(value, NamedSharding):
+            raise TypeError(f"TrainStepConfig.{name} takes a distributed."
+                            f"spec.NamedSharding; got {value!r}")
+    if tcfg.grad_sharding is not None and not all(
+            isinstance(s, NamedSharding)
+            for s in _sharding_leaves(tcfg.grad_sharding)):
+        raise TypeError("TrainStepConfig.grad_sharding takes a tree of "
+                        "distributed.spec.NamedShardings like the "
+                        "parameters")
+
+
+def _placed(grads, params, shardings):
+    """Each gradient placed by its ``NamedSharding`` (``shardings``, a tree
+    like the parameters) or, without one, as its parameter is; plain
+    tensors unchanged."""
+    leaves = pytree.tree_leaves(grads)
+    if not any(is_dtensor(g) for g in leaves):
+        return grads
+    if shardings is None:
+        out = [g if not is_dtensor(p) or g.placements == p.placements
+               else g.redistribute(p.device_mesh, p.placements)
+               for g, p in zip(leaves, pytree.tree_leaves(params))]
+    else:
+        out = [constrain(g, s) for g, s in zip(leaves, _sharding_leaves(
+            shardings))]
+    return pytree.tree_unflatten(out, pytree.tree_structure(grads))
+
+
+def _sharding_leaves(shardings):
+    return pytree.tree_leaves(
+        shardings, is_leaf=lambda x: isinstance(x, NamedSharding))
+
+
+def batch_sharding(params) -> Optional[NamedSharding]:
+    """Where ``train_step`` places a plain batch: by ``batch_spec`` over
+    the mesh of the parameters (``("pod", "data")`` when the mesh has a
+    ``pod`` axis, else ``data``); None for plain parameters."""
+    leaf = pytree.tree_leaves(params)[0]
+    if not is_dtensor(leaf):
+        return None
+    mesh = leaf.device_mesh
+    pod = "pod" if "pod" in (mesh.mesh_dim_names or ()) else None
+    return NamedSharding(mesh, batch_spec(ShardingRules(pod=pod)))
 
 
 def make_value_and_grad(cfg: ArchConfig,
@@ -128,11 +189,15 @@ def make_value_and_grad(cfg: ArchConfig,
             loss = mdl.loss_fn(pytree.tree_unflatten(live, spec), cfg, x, y,
                                remat=tcfg.remat,
                                remat_policy=tcfg.remat_policy,
+                               act_sharding=tcfg.act_sharding,
+                               sp_sharding=tcfg.sp_sharding,
                                moe_dispatch=tcfg.moe_dispatch)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
-        return loss.detach(), pytree.tree_unflatten(grads, spec)
+        grads = _placed(pytree.tree_unflatten(grads, spec), params,
+                        tcfg.grad_sharding)
+        return full(loss.detach()), grads
 
     def value_and_grad(params, inputs, labels):
         mb = tcfg.microbatches
@@ -142,24 +207,31 @@ def make_value_and_grad(cfg: ArchConfig,
         if B % mb:
             raise ValueError(f"batch {B} does not split into {mb} "
                              "microbatches")
-        xs = inputs.reshape(mb, B // mb, *inputs.shape[1:])
-        ys = labels.reshape(mb, B // mb, *labels.shape[1:])
-        acc = pytree.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=tcfg.grad_accum_dtype,
-                                  device=p.device), params)
+        # on a mesh the batch is gathered before the split (DTensor cannot
+        # unflatten a split batch dim that mb does not divide into);
+        # microbatch_sharding then places the (mb, b, ...) split
+        xs, ys = (constrain(whole(a, 0).reshape(mb, B // mb, *a.shape[1:]),
+                            tcfg.microbatch_sharding)
+                  for a in (inputs, labels))
+        acc = _placed(pytree.tree_map(
+            lambda p: torch.zeros_like(p, dtype=tcfg.grad_accum_dtype),
+            params), params, tcfg.grad_sharding)
         acc_leaves = pytree.tree_leaves(acc)
         loss = 0.0
-        for x, y in zip(xs, ys):
-            l, g = one(params, x, y)
+        for i in range(mb):
+            l, g = one(params, xs[i], ys[i])
             with torch.no_grad():
-                torch._foreach_add_(acc_leaves, [
-                    gi.to(a.dtype) for a, gi in
+                # each rank adds its own shards (gradient and accumulator
+                # share placements)
+                torch._foreach_add_([local(a) for a in acc_leaves], [
+                    local(gi).to(a.dtype) for a, gi in
                     zip(acc_leaves, pytree.tree_leaves(g))])
             del g
             loss = loss + l
         with torch.no_grad():
-            torch._foreach_div_(acc_leaves, mb)
-        return loss / mb, acc
+            torch._foreach_div_([local(a) for a in acc_leaves], mb)
+        # the optimizer updates each rank's shards: the parameters' places
+        return loss / mb, _placed(acc, params, None)
 
     return value_and_grad
 
@@ -174,8 +246,10 @@ def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
 
     def train_step(state: TrainState, inputs, labels):
         device = state.opt_state.step.device
-        x = torch.as_tensor(inputs, device=device)
-        y = torch.as_tensor(labels, device=device)
+        placed = batch_sharding(state.params)
+        x, y = (a if is_dtensor(a) else constrain(
+            torch.as_tensor(a, device=device), placed)
+            for a in (inputs, labels))
         with record_function("train_step/forward_backward"):
             loss, grads = value_and_grad(state.params, x, y)
         with record_function("train_step/clip"):
@@ -200,13 +274,16 @@ def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
 # Serving steps
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(cfg: ArchConfig, use_kernel: bool = False) -> Callable:
-    """prefill_step(params, inputs) -> logits (forward only)."""
+def make_prefill_step(cfg: ArchConfig, use_kernel: bool = False,
+                      act_sharding=None) -> Callable:
+    """prefill_step(params, inputs) -> logits (forward only);
+    ``act_sharding`` as ``forward``'s."""
 
     def prefill_step(params, inputs):
         with torch.no_grad():
             logits, _ = mdl.forward(params, cfg, inputs,
-                                    use_kernel=use_kernel, remat=False)
+                                    use_kernel=use_kernel, remat=False,
+                                    act_sharding=act_sharding)
         return logits
 
     return prefill_step

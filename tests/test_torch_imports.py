@@ -20,11 +20,16 @@ re-exports — apart from the names listed below with their reason.
 ``repro_torch.distributed.spec`` has no reference module (the reference
 imports ``P`` from ``jax.sharding``).  The training stack (``optim``,
 ``data``, ``checkpoint``, ``runtime.fault_tolerance``, the train step and
-loop, ``launch.train``) carries every reference name; its mesh-only
-options raise ``NotImplementedError`` citing ROADMAP A.12c.
+loop, ``launch.train``) and the dry run (``launch.shapes``,
+``launch.dryrun``) carry every reference name, and importing the dry run
+starts no process group.  ``repro.launch.dryrun`` sets ``XLA_FLAGS`` when
+it is imported; the imports here restore the environment.
 """
 import ast
 import importlib
+import os
+import subprocess
+import sys
 import inspect
 import pathlib
 import pkgutil
@@ -167,7 +172,9 @@ def test_port_has_modules():
                    "repro_torch/checkpoint/__init__.py",
                    "repro_torch/checkpoint/checkpointer.py",
                    "repro_torch/runtime/fault_tolerance.py",
-                   "repro_torch/launch/train.py"):
+                   "repro_torch/launch/train.py",
+                   "repro_torch/launch/shapes.py",
+                   "repro_torch/launch/dryrun.py"):
         assert module in names
     assert (REPO / "chip_smoke.py").exists()
     for name in ("flash_attention", "rwkv_wkv"):
@@ -273,15 +280,28 @@ def test_every_new_module_of_the_slice_is_a_ported_submodule():
                    "repro_torch.checkpoint.checkpointer",
                    "repro_torch.runtime.fault_tolerance",
                    "repro_torch.runtime.train_loop",
-                   "repro_torch.launch.train"):
+                   "repro_torch.launch.train",
+                   "repro_torch.launch.shapes",
+                   "repro_torch.launch.dryrun"):
         assert module in names, module
     assert "repro_torch.distributed.spec" not in names
+
+
+def _reference(name):
+    """``importlib.import_module(name)`` with ``os.environ`` as it was
+    (``repro.launch.dryrun`` sets ``XLA_FLAGS`` at import)."""
+    saved = dict(os.environ)
+    try:
+        return importlib.import_module(name)
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
 
 
 @pytest.mark.parametrize("port_name,ref_name", SUBMODULES,
                          ids=[port for port, _ in SUBMODULES])
 def test_ported_submodule_carries_the_reference_names(port_name, ref_name):
-    reference = importlib.import_module(ref_name)
+    reference = _reference(ref_name)
     port = importlib.import_module(port_name)
     skipped, _why = NOT_MIRRORED.get(port_name, (set(), ""))
     want = _public_names(reference)
@@ -292,3 +312,14 @@ def test_ported_submodule_carries_the_reference_names(port_name, ref_name):
         assert set(reference.__all__) <= set(getattr(port, "__all__", ())), \
             f"{port_name}.__all__ lacks " \
             f"{sorted(set(reference.__all__) - set(port.__all__))}"
+
+
+def test_importing_the_dry_run_starts_no_process_group():
+    out = subprocess.run(
+        [sys.executable, "-c", "import torch.distributed as dist; "
+         "import repro_torch.launch.dryrun, repro_torch.launch.shapes; "
+         "print(dist.is_initialized())"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"

@@ -403,13 +403,13 @@ def test_entry_points_default_to_the_card_and_every_family_builds():
         assert logits.shape == (1, 4, c.vocab_size)
         assert step.shape == (1, 1, c.vocab_size)
     tp = TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    # remat is ported (the training slice); the sharding constraints wait
-    # for training on a mesh
+    # remat is ported (the training slice); the sharding constraints take
+    # NamedShardings (their mesh runs: tests/test_torch_mesh_training.py)
     torch.testing.assert_close(TM.forward(tp, cfg, x, remat=True)[0],
                                TM.forward(tp, cfg, x, remat=False)[0],
                                atol=0, rtol=0)
     for kw in ({"act_sharding": object()}, {"sp_sharding": object()}):
-        with pytest.raises(NotImplementedError, match="A.12c"):
+        with pytest.raises(TypeError, match="NamedSharding"):
             TM.forward(tp, cfg, x, **kw)
     # a model without MoE ignores the dispatch, as the reference
     torch.testing.assert_close(TM.forward(tp, cfg, x,
