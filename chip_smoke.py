@@ -3812,6 +3812,189 @@ def swapped(op):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 30: second derivatives through the implicit solve
+# ---------------------------------------------------------------------------
+
+SECOND = dict(B=64, d=512, m=1024, loop=8, rhs=4)   # phase 17's ridge batch
+
+
+def phase_second_order(device, gen, B, d, m, loop, rhs):
+    """Phase 30: d²(Σx*²)/dθ² of phase 17's ridge batch through the
+    implicit solve, every solve routed to ``pallas_cg`` — (a)
+    ``vmap(hessian)``, (b) ``vmap(jacfwd(jacfwd))``, (c)
+    ``vmap(grad(grad))`` over the B instances — against the float64 closed
+    form 2(x'·x' + x*·x'') (x' = −A⁻¹x*, x'' = −2A⁻¹x') and a loop over
+    ``loop`` instances; (d) on a single-rank NCCL mesh, ``vmap`` of a
+    sharded solve over ``rhs`` right-hand sides and of a sharded gradient
+    over ``rhs`` cotangent seeds against loops of single calls."""
+    import torch
+    import torch.distributed as dist
+    import torch.func
+    from repro_torch.core import custom_root, implicit_diff
+    from repro_torch.core import linear_solve as ls
+    from repro_torch.core import operators as ops
+    from repro_torch.core.diff_api import ImplicitDiffSpec
+    from repro_torch.distributed import P, ShardedOperator, SolveSharding
+    from repro_torch.launch.mesh import make_solve_mesh
+    f32 = torch.float32
+    _, _, X, theta = ridge_batch(gen, B, d, m, f32, device)
+    y = torch.randn(B, m, generator=gen, device=device, dtype=f32)
+    eye = torch.eye(d, device=device, dtype=f32)
+
+    def F(x, X, y, t):
+        return X.T @ (X @ x - y) / m + t * x
+
+    @custom_root(F, solve="pallas_cg", tol=HYPERGRAD_TOL)
+    def ridge(init, X, y, t):
+        return torch.linalg.solve(X.T @ X / m + t * eye, X.T @ y / m)
+
+    def loss(X, y, t):
+        return (ridge(None, X, y, t) ** 2).sum()
+
+    second = {
+        "a": torch.func.hessian(loss, argnums=2),
+        "b": torch.func.jacfwd(torch.func.jacfwd(loss, argnums=2),
+                               argnums=2),
+        "c": torch.func.grad(torch.func.grad(loss, argnums=2), argnums=2)}
+    Xd = X.double()
+    A = Xd.transpose(1, 2) @ Xd / m + theta.double()[:, None, None] * \
+        torch.eye(d, device=device, dtype=torch.float64)
+    xs = torch.linalg.solve(A, (Xd.transpose(1, 2) @ y.double()[..., None])
+                            [..., 0] / m)
+    x1 = -torch.linalg.solve(A, xs)
+    x2 = -2 * torch.linalg.solve(A, x1)
+    want = 2 * ((x1 * x1).sum(-1) + (xs * x2).sum(-1))
+    del A, Xd
+
+    res = {"d": d}
+    for name, fn in second.items():
+        torch.func.vmap(fn)(X, y, theta)             # warm-up, not counted
+        cg_counts(reset=True)
+        got, s_b = timed(device, lambda: torch.func.vmap(fn)(X, y, theta))
+        launches, by_layout = cg_counts()
+        cg_counts(reset=True)
+        looped, s_l = timed(device, lambda: torch.stack(
+            [fn(X[i], y[i], theta[i]) for i in range(loop)]))
+        res[name] = dict(
+            launches=launches, by_layout=by_layout,
+            loop_launches=cg_counts()[0], batched_s=s_b, loop_s=s_l,
+            finite=bool(torch.isfinite(got).all()),
+            vs_closed=float(rel_rows(got, want).max()),
+            control=float(rel_rows(got, want.roll(1, 0)).max()),
+            vs_loop=float(rel_rows(got[:loop], looped).max()))
+
+    # (d) vmap over sharded solves on a mesh of one
+    check(not dist.is_initialized(), "phase 30: a process group is already "
+          "running")
+    try:
+        mesh = make_solve_mesh(device=device)
+        res["backend"], res["mesh"] = dist.get_backend(), mesh.size()
+        A = X.transpose(1, 2) @ X / m + theta[:, None, None] * eye
+        op = ShardedOperator(ops.DenseOperator(A, positive_definite=True),
+                             mesh, P("data", None))
+        bs = torch.randn(rhs, B, d, generator=gen, device=device, dtype=f32)
+
+        def solve(b):
+            return ls.solve(op, b, method="sharded_cg", tol=HYPERGRAD_TOL)
+
+        xv, res["d_solve_s"] = timed(device,
+                                     lambda: torch.func.vmap(solve)(bs))
+        xl, res["d_solve_loop_s"] = timed(device, lambda: torch.stack(
+            [solve(b) for b in bs]))
+        res["d_solve"] = float(rel_rows(xv.flatten(0, 1),
+                                        xl.flatten(0, 1)).max())
+        res["d_solve_control"] = float(rel_rows(
+            xv.flatten(0, 1), xl.roll(1, 1).flatten(0, 1)).max())
+
+        def F_batch(x, X, y, t):
+            r = torch.einsum("bmd,bd->bm", X, x) - y
+            return torch.einsum("bmd,bm->bd", X, r) / m + t[:, None] * x
+
+        def solve_batch(init, X, y, t):
+            A = X.transpose(1, 2) @ X / m + t[:, None, None] * eye
+            return torch.linalg.solve(
+                A, (X.transpose(1, 2) @ y[..., None])[..., 0] / m)
+
+        sharding = SolveSharding(mesh, P("data", None), batch_ndim=1,
+                                 theta_specs=(P("data", None, None),
+                                              P("data", None), P("data")))
+        sharded = implicit_diff(ImplicitDiffSpec(
+            optimality_fun=F_batch, solve="pallas_cg", tol=HYPERGRAD_TOL,
+            sharding=sharding))(solve_batch)
+        grad = torch.func.grad(
+            lambda t, s: (sharded(None, X, y, t) * s).sum())
+        seeds = torch.randn(rhs, B, d, generator=gen, device=device,
+                            dtype=f32)
+        cg_counts(reset=True)
+        gv, res["d_grad_s"] = timed(device, lambda: torch.func.vmap(
+            grad, in_dims=(None, 0))(theta, seeds))
+        res["d_grad_launches"] = cg_counts()[0]
+        gl, res["d_grad_loop_s"] = timed(device, lambda: torch.stack(
+            [grad(theta, s) for s in seeds]))
+        res["d_grad"] = float(rel_rows(gv, gl).max())
+        res["d_grad_control"] = float(rel_rows(gv, gl.roll(1, 0)).max())
+        res["d_finite"] = bool(torch.isfinite(xv).all() and
+                               torch.isfinite(gv).all())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    del X, y
+    free(device)
+    return res
+
+
+def check_second_order(r, B, loop):
+    """Phase 30's checks: the closed form (with its control), the loop, one
+    C8 launch per solve over the whole batch, and (d)."""
+    for name in "abc":
+        q = r[name]
+        check(q["finite"] and q["vs_closed"] <= CLOSED_RTOL < q["control"],
+              f"phase 30 ({name}): against the float64 closed form "
+              f"{q['vs_closed']:.3e} (limit {CLOSED_RTOL}, control "
+              f"{q['control']:.3e})")
+        check(q["vs_loop"] <= VMAP_RTOL, f"phase 30 ({name}): vmap against "
+              f"the loop {q['vs_loop']:.3e} (limit {VMAP_RTOL})")
+        # three solves per second derivative, each one launch for the batch
+        check(q["launches"] == 3 and q["by_layout"] == {MAIN_LAYOUT: 3},
+              f"phase 30 ({name}): vmap over {B} launched {q['launches']} "
+              f"{q['by_layout']}, expected three {MAIN_LAYOUT} launches")
+        check(q["loop_launches"] == 3 * loop, f"phase 30 ({name}): the loop "
+              f"over {loop} launched {q['loop_launches']}, expected "
+              f"{3 * loop}")
+    check(r["backend"] == "nccl" and r["mesh"] == 1, f"phase 30 (d): group "
+          f"{r['backend']}, mesh of {r['mesh']}")
+    check(r["d_finite"] and r["d_solve"] <= VMAP_RTOL < r["d_solve_control"]
+          and r["d_grad"] <= VMAP_RTOL < r["d_grad_control"],
+          f"phase 30 (d): vmap against the loop: solve {r['d_solve']:.3e} "
+          f"(control {r['d_solve_control']:.3e}), gradient "
+          f"{r['d_grad']:.3e} (control {r['d_grad_control']:.3e}), limit "
+          f"{VMAP_RTOL}")
+    check(r["d_grad_launches"] == 0, f"phase 30 (d): the sharded gradient "
+          f"launched the kernel {r['d_grad_launches']} times")
+
+
+def say_second_order(r, card, B, loop, rhs):
+    say("30 second order", f"[{card}] d²(Σx*²)/dθ² of {B} ridge problems "
+        f"d={r['d']} float32, pallas_cg: " + "; ".join(
+            f"({n}) {label}: {r[n]['launches']} launches "
+            f"{r[n]['by_layout']} in {r[n]['batched_s'] * 1e3:.1f} ms, loop "
+            f"over {loop} {r[n]['loop_launches']} launches in "
+            f"{r[n]['loop_s'] * 1e3:.1f} ms; rel vs float64 closed form "
+            f"{r[n]['vs_closed']:.2e} (control {r[n]['control']:.2e}), vs "
+            f"loop {r[n]['vs_loop']:.2e}"
+            for n, label in (("a", "vmap(hessian)"),
+                             ("b", "vmap(jacfwd(jacfwd))"),
+                             ("c", "vmap(grad(grad))")))
+        + f"; (d) {r['backend']} mesh of {r['mesh']}: vmap of sharded_cg "
+        f"over {rhs} right-hand sides {r['d_solve_s'] * 1e3:.1f} ms (loop "
+        f"{r['d_solve_loop_s'] * 1e3:.1f} ms), rel {r['d_solve']:.2e} "
+        f"(control {r['d_solve_control']:.2e}); vmap of the sharded "
+        f"gradient over {rhs} seeds {r['d_grad_s'] * 1e3:.1f} ms (loop "
+        f"{r['d_grad_loop_s'] * 1e3:.1f} ms), rel {r['d_grad']:.2e} "
+        f"(control {r['d_grad_control']:.2e})")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4485,11 +4668,19 @@ def main(argv=None) -> None:
     say_mesh_train(s29, s28, dry29, card)
     say("29 time", f"{time.perf_counter() - t_phase:.1f} s")
 
+    # 30. second derivatives through the implicit solve
+    t_phase = time.perf_counter()
+    s30 = phase_second_order(device, gen, **SECOND)
+    check_second_order(s30, SECOND["B"], SECOND["loop"])
+    say_second_order(s30, card, SECOND["B"], SECOND["loop"], SECOND["rhs"])
+    say("30 time", f"{time.perf_counter() - t_phase:.1f} s")
+
     say("total", f"{time.perf_counter() - t_start:.1f} s")
     launches = s4["launches"] + s5["launches"] + s6["fwd"] + s6["bwd"] \
         + s7["launches"] + s17["grad"]["launches"] \
         + s17["jvp"]["launches"] + run17["launches"] + s19["launches"] \
-        + s22["launches"] + s24["single_launches"]
+        + s22["launches"] + s24["single_launches"] \
+        + sum(s30[n]["launches"] for n in "abc")
     print(json.dumps({"kernels": [{
         "name": "batched_cg", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,

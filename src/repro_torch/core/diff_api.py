@@ -46,10 +46,28 @@ the backward or tangent system of the whole batch is ONE registry solve
 on a batch-aware operator (``batch_ndim=1``) built as a
 ``torch.func.vmap`` of the per-instance JVP / VJP.  ``vmap`` of
 ``grad``, of ``jvp``, ``jacrev`` (one operator, many right-hand sides)
-and ``jacfwd`` each run one solve.
+and ``jacfwd`` each run one solve; a ``vmap`` of a ``vmap`` folds both
+axes into that one solve.  Each rule applies its Function again on the
+batch, so a derivative level below the ``vmap`` still reaches the rules.
+
+Second derivatives: ``_SystemSolve`` is differentiable to any order with
+the semantics of ``lax.custom_linear_solve`` (its ``backward`` solves the
+flipped direction, its ``jvp`` the same one, each a ``_SystemSolve``
+again), and the rules of the wrapper's Function are differentiable at
+the next level, so ``grad(grad)``, ``torch.func.hessian``
+(``jacfwd(grad)``), ``grad`` of ``jvp`` and ``jacfwd(jacfwd)`` give the
+JAX package's values, ``vmap`` of each one solve per level.  At an outer
+level x*'s own derivative is exact (``_Call.outer``).  A Function's
+``jvp`` rule runs with forward mode off, which would drop an outer
+``jvp``'s tangent of its work; the rules strip their own level's tangent
+and turn forward mode back on (``_primal``).
 
 Mode selection (``mode=``): ``"auto"`` (both), ``"vjp"`` (reverse only;
-forward mode raises), ``"jvp"`` (forward only; reverse mode raises).
+forward mode raises), ``"jvp"`` (forward only; reverse mode raises).  At
+second order, as in the JAX package, ``"auto"`` gives all four
+combinations, ``"vjp"`` only ``jacfwd(grad)`` and ``"jvp"`` only
+``jacfwd(jacfwd)``; ``root_vjp`` / ``root_jvp`` called directly are
+differentiable in forward mode only.
 
 Mesh placement (``sharding``, a ``repro_torch.distributed.
 sharded_operators.SolveSharding``): ``A`` becomes a ``ShardedOperator``
@@ -58,8 +76,10 @@ classic solver names upgrade to the ``sharded_*`` solvers, and the θ
 products (``uᵀB``, ``Bθ̇``) run on the local shards too.  Tensors cross
 as ``DTensor``s (nothing gathered) or as plain tensors every rank holds
 alike (global values).  Forward mode takes plain tensors: ``torch.func.
-jvp`` does not trace DTensors.  A sharded solve under ``torch.func.vmap``
-raises ``NotImplementedError``.
+jvp`` does not trace DTensors.  Under ``torch.func.vmap`` (plain
+tensors) a sharded solve batches itself: one solve where the operator is
+shared, one per slice otherwise.  A second derivative through a sharded
+solve raises ``NotImplementedError``.
 
 Conventions: the wrapped solver has signature ``solver(init, *theta)`` and
 returns ``x*`` (or ``(x*, aux)`` with ``has_aux=True``).  ``F``/``T`` take
@@ -69,6 +89,8 @@ arguments are the inputs the derivatives flow to.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import functools
 import warnings
@@ -335,15 +357,24 @@ class _System:
     """One implicit linear system of ``root_vjp`` / ``root_jvp``: how A is
     built (``F`` at ``x*``, θ) and treated, and the trees ``(x*, θ, rhs)``
     whose tensors cross ``_SystemSolve``.  ``transpose`` solves
-    ``Aᵀ u = rhs`` (the cotangent system)."""
+    ``Aᵀ u = rhs`` (the cotangent system).
+
+    ``derivative`` says how the solve is differentiated in turn (see
+    ``_SystemSolve``): ``"linear_solve"`` as ``lax.custom_linear_solve``
+    (both directions, the same treatment of A: the wrapper's ``"auto"``
+    mode) or ``"direct"`` as the JAX package's solve routine itself is
+    differentiated (forward mode only: ``root_vjp`` / ``root_jvp`` called
+    directly and the single-mode wrappers).  ``source`` names what built
+    the system, for the error a derivative that is not available raises."""
 
     def __init__(self, F, x_star, theta_args, rhs, *, transpose, solve,
                  tol, maxiter, ridge, precond, backward, backward_iters,
                  error_estimate, return_info, system_operator, direction,
-                 sharding=None):
+                 sharding=None, derivative="direct", source="root_vjp"):
         self.F, self.transpose, self.solve = F, transpose, solve
         self.system_operator, self.direction = system_operator, direction
         self.sharding = sharding
+        self.derivative, self.source = derivative, source
         # a mesh-placed system carries its batch axis on every leaf
         self.batch_ndim = 0 if sharding is None else sharding.batch_ndim
         self.kw = dict(solve=solve, tol=tol, maxiter=maxiter, ridge=ridge,
@@ -352,13 +383,72 @@ class _System:
                        error_estimate=error_estimate)
         self.return_info = return_info
         self.flat = Flat(x_star, tuple(theta_args), rhs)
+        self.operands = Flat(x_star, tuple(theta_args))
         self.info_fields = None
+        # a batch of systems (``batched``): the instance count and which
+        # operand tensors carry the instance axis (0) or are shared (None)
+        self.batch, self.base = None, self
 
     def operator(self, x_star, theta) -> ops.LinearOperator:
-        """The matrix of the system (A, or Aᵀ) at one instance."""
+        """The matrix of the system (A, or Aᵀ) at one instance, or of the
+        batch as one ``_BatchedSystem``."""
+        if self.batch is not None:
+            B, dims = self.batch
+            x_dims, th_dims = self.operands.dims(dims)
+            example = tree_map(lambda t, d: t if d is not None else
+                               t.expand((B,) + tuple(t.shape)),
+                               x_star, x_dims)
+            return _BatchedSystem(self.base, (x_star, theta),
+                                  (x_dims, th_dims), example)
         A = _implicit_system_operator(self.F, x_star, theta, self.solve,
                                       self.sharding, self.system_operator)
         return A.T if self.transpose else A
+
+    def batched(self, tensors, dims, size: int):
+        """This system over a ``vmap`` rule's batch (``tensors`` with their
+        batch axes first, ``dims`` 0 or None): ONE system on
+        ``_BatchedSystem``.  A system that is already a batch (a ``vmap``
+        of a ``vmap``) folds the new axis into its instance axis, so that
+        the registry still sees one solve; ``unbatch`` splits the
+        solve's outputs again.  Returns ``(system, unbatch)``."""
+        n_op = len(self.operands.tensors)
+        if self.batch is None:
+            folded = [t if d is not None or i < n_op else
+                      t.expand((size,) + tuple(t.shape))
+                      for i, (t, d) in enumerate(zip(tensors, dims))]
+            op_dims, count = list(dims[:n_op]), size
+            unbatch = tuple
+        else:
+            inner, inner_dims = self.batch
+            folded, op_dims = [], []
+            for i, (t, d) in enumerate(zip(tensors, dims)):
+                d_in = inner_dims[i] if i < n_op else 0
+                if d is None and d_in is None:
+                    folded.append(t)
+                    op_dims.append(None)
+                    continue
+                if d is None:
+                    t = t.expand((size,) + tuple(t.shape))
+                elif d_in is None:
+                    t = t.unsqueeze(1).expand(
+                        (size, inner) + tuple(t.shape[1:]))
+                folded.append(t.reshape((size * inner,) + tuple(t.shape[2:])))
+                op_dims.append(0 if i < n_op else None)
+            op_dims, count = op_dims[:n_op], size * inner
+
+            def unbatch(out):
+                return tuple(o.reshape((size, inner) + tuple(o.shape[1:]))
+                             for o in out)
+
+        root = self if self.batch is None else self.base
+        system = copy.copy(root)
+        system.base = root
+        system.batch = (count, tuple(op_dims))
+        system.batch_ndim = 1
+        x_star, theta, rhs = self.flat.trees(folded)
+        system.flat = Flat(x_star, theta, rhs)
+        system.operands = Flat(x_star, theta)
+        return system, unbatch
 
     def apply(self, M, rhs, batch_ndim: int) -> tuple:
         """Solve with ``M``; the flat outputs: u's leaves, then the tensor
@@ -376,11 +466,110 @@ class _System:
 
     def unpack(self, flat):
         """``(u, SolveInfo | None)`` from ``apply``'s flat outputs."""
-        n = self.flat.counts[2]
-        u = tree_unflatten(list(flat[:n]), self.flat.parts[2][1])
+        u = self.rhs_tree(flat)
         if not self.return_info:
             return u, None
+        n = self.flat.counts[2]
         return u, ls.SolveInfo(**dict(zip(self.info_fields, flat[n:])))
+
+    def rhs_tree(self, tensors):
+        """A right-hand-side-shaped tree (u, a tangent) from its first
+        tensors."""
+        n = self.flat.counts[2]
+        return tree_unflatten(list(tensors[:n]), self.flat.parts[2][1])
+
+    def again(self, operands, rhs, transpose: bool):
+        """``M⁻¹ rhs`` with this system's matrix at ``operands`` (x*'s and
+        θ's tensors), in direction ``transpose``: the inner solve of a
+        derivative, itself a ``_SystemSolve`` so that every order
+        composes."""
+        system = copy.copy(self)
+        x_star, theta = self.operands.trees(operands)
+        system.transpose, system.return_info = transpose, False
+        if self.batch is not None:          # its instances' direction too
+            system.base = copy.copy(self.base)
+            system.base.transpose = transpose
+        system.direction = "vjp" if transpose else "jvp"
+        system.flat = Flat(x_star, theta, rhs)
+        out = _SystemSolve.apply(system, *system.flat.tensors)
+        return system.unpack(out)[0]
+
+    def _of_operands(self, fn: Callable, tensors):
+        """``fn(x*, θ, *rest)`` as a function of the floating-point tensors
+        among ``tensors`` (x*'s and θ's, then any others): ``(that
+        function, those tensors, their slots)``."""
+        n = len(self.operands.tensors)
+        slots = [i for i, t in enumerate(tensors) if _is_diff_leaf(t)]
+
+        def of(*diff):
+            full = list(tensors)
+            for i, t in zip(slots, diff):
+                full[i] = t
+            return canonical(fn(*self.operands.trees(full[:n]), *full[n:]))
+
+        return of, [tensors[i] for i in slots], slots
+
+    def product_jvp(self, operands, u, dots):
+        """``Ṁ u``: the tangent of ``M(x*, θ) u`` along ``dots`` (one
+        ``torch.func.jvp``; a ``None`` tangent is zero)."""
+        of, primals, slots = self._of_operands(
+            lambda x, th: self.operator(x, th).matvec(u), operands)
+        return torch.func.jvp(of, tuple(primals),
+                              _tangents(operands, dots, slots))[1]
+
+    def product_vjp(self, operands, u, w) -> list:
+        """``−∂⟨w, M(x*, θ) u⟩ / ∂(x*, θ)`` per operand tensor (one
+        ``torch.func.vjp``; ``None`` for a tensor that is not
+        floating-point)."""
+        of, primals, slots = self._of_operands(
+            lambda x, th: self.operator(x, th).matvec(u), operands)
+        _, vjp_fun = torch.func.vjp(of, *primals)
+        grads = [None] * len(operands)
+        for i, g in zip(slots, vjp_fun(canonical(w))):
+            grads[i] = -g
+        return grads
+
+    def polynomial_jvp(self, operands, rhs, dots, rhs_dots):
+        """The tangent of the fixed-budget polynomial ``P(M(x*, θ)) rhs``
+        of an approximate mode, differentiated as it stands (as the JAX
+        package differentiates its ``approx_inverse_apply``)."""
+        kw = {k: self.kw[k] for k in ("ridge", "precond", "backward",
+                                      "backward_iters", "tol")}
+        of, primals, slots = self._of_operands(
+            lambda x, th, *r: ls.approx_inverse_apply(
+                self.operator(x, th), self.rhs_tree(r),
+                batch_ndim=self.batch_ndim, **kw),
+            list(operands) + list(rhs))
+        return torch.func.jvp(of, tuple(primals), _tangents(
+            list(operands) + list(rhs), list(dots) + list(rhs_dots),
+            slots))[1]
+
+
+def _tangents(tensors, dots, slots) -> tuple:
+    """The tangents of ``tensors[slots]``: ``dots``'s, zero for ``None``."""
+    return tuple(torch.zeros_like(tensors[i]) if dots[i] is None else dots[i]
+                 for i in slots)
+
+
+def _primal(t):
+    """``t`` without the forward-mode tangent of the level whose ``jvp``
+    rule is running.  torch runs a Function's ``jvp`` rule with forward
+    mode off, so the rule's work would silently carry no tangent of an
+    OUTER ``torch.func.jvp`` (``jacfwd(jacfwd(f))``); with this level's
+    tangent stripped, a rule may turn forward mode back on
+    (``_forward_mode``) and its result carries the outer tangents."""
+    return t if t is None else torch._unpack_dual(t, 0)[0]
+
+
+@contextlib.contextmanager
+def _forward_mode():
+    """Forward-mode AD on inside a ``jvp`` rule (see ``_primal``)."""
+    enabled = torch._C._is_fwd_grad_enabled()
+    torch._C._set_fwd_grad_enabled(True)
+    try:
+        yield
+    finally:
+        torch._C._set_fwd_grad_enabled(enabled)
 
 
 class _BatchedSystem(ops.LinearOperator):
@@ -439,47 +628,113 @@ class _BatchedSystem(ops.LinearOperator):
         return self._each(lambda M: M.diagonal())
 
 
+_SHARDED_SECOND_ORDER = (
+    "a derivative of a mesh-placed implicit solve (a second derivative "
+    "through a sharded implicit_diff, root_vjp or root_jvp) is not "
+    "supported by the PyTorch port")
+
+
 class _SystemSolve(torch.autograd.Function):
-    """The solve of one ``_System`` as a Function.  Its ``vmap`` rule runs
-    a whole batch of systems as ONE registry solve (``_BatchedSystem``).
-    Being a Function, the solve's iterations are never recorded — under
+    """The solve of one ``_System`` as a Function, differentiable to any
+    order with the semantics of ``lax.custom_linear_solve``.  For
+    ``u = M⁻¹ r`` with ``M = M(x*, θ)`` (A or Aᵀ):
+
+      * ``backward``, given ``ū``: ``w = M⁻ᵀ ū`` (the flipped direction),
+        ``r̄ = w`` and ``(x̄*, θ̄) = −∂⟨w, M u⟩/∂(x*, θ)`` by one
+        ``torch.func.vjp`` of the matvec;
+      * ``jvp``: ``u̇ = M⁻¹(ṙ − Ṁ u)``, ``Ṁ u`` by one ``torch.func.jvp``.
+
+    Each inner solve is a ``_SystemSolve`` again (``_System.again``), with
+    the system's routing: the registry solver, or under an approximate
+    ``backward`` the same polynomial.  A ``"direct"`` system (``_System``)
+    has no ``backward`` and its approximate ``jvp`` differentiates the
+    polynomial itself.  The solve's iterations are never recorded — under
     ``torch.func.grad``, which keeps the backward's graph, they would hold
-    every iteration's intermediates — and it is not differentiated again:
-    a second derivative through it raises."""
+    every iteration's intermediates.  The ``vmap`` rule runs a whole batch
+    of systems as ONE registry solve (``_BatchedSystem``)."""
+
+    @staticmethod
+    def _check(system):
+        if system.sharding is not None:
+            raise NotImplementedError(_SHARDED_SECOND_ORDER)
 
     @staticmethod
     def forward(system, *tensors):
         x_star, theta, rhs = system.flat.trees(tensors)
-        return system.apply(system.operator(x_star, theta), rhs,
-                            system.batch_ndim)
+        out = system.apply(system.operator(x_star, theta), rhs,
+                           system.batch_ndim)
+        # "jacobian_free" returns its right-hand side, which a Function
+        # may not hand back as it came in
+        return tuple(o.clone() if any(o is t for t in tensors) else o
+                     for o in out)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        system = ctx.system = inputs[0]
+        n_op, n_u = len(system.operands.tensors), system.flat.counts[2]
+        ctx.mark_non_differentiable(*output[n_u:])
+        operands, rhs = inputs[1:1 + n_op], inputs[1 + n_op:]
+        ctx.save_for_backward(*operands, *output[:n_u])
+        ctx.save_for_forward(*operands, *rhs, *output[:n_u])
 
     @staticmethod
     def backward(ctx, *grads):
-        raise NotImplementedError(
-            "a derivative of the implicit linear solve (a second derivative "
-            "through implicit_diff, root_vjp or root_jvp) is not supported "
-            "by the PyTorch port")
+        system = ctx.system
+        _SystemSolve._check(system)
+        if system.derivative == "direct":
+            raise RuntimeError(
+                f"reverse mode through the linear solve of {system.source} "
+                "is not available (the JAX package's solve loop is not "
+                "reverse-differentiable either); forward mode is, and a "
+                "mode='auto' wrapper serves both")
+        n_op, n_u = len(system.operands.tensors), system.flat.counts[2]
+        saved = ctx.saved_tensors
+        operands, u = saved[:n_op], system.rhs_tree(saved[n_op:])
+        w = system.again(operands, system.rhs_tree(grads[:n_u]),
+                         not system.transpose)
+        return (None, *system.product_vjp(operands, u, w),
+                *tree_flatten(w)[0])
+
+    @staticmethod
+    def jvp(ctx, _system_dot, *dots):
+        system = ctx.system
+        _SystemSolve._check(system)
+        n_op, n_u = len(system.operands.tensors), system.flat.counts[2]
+        saved = [_primal(t) for t in ctx.saved_tensors]
+        dots = [_primal(d) for d in dots]
+        operands, rhs = saved[:n_op], saved[n_op:n_op + n_u]
+        u = system.rhs_tree(saved[n_op + n_u:])
+        with _forward_mode():
+            if system.derivative == "direct" and \
+                    system.kw["backward"] != "exact":
+                du = system.polynomial_jvp(operands, rhs, dots[:n_op],
+                                           dots[n_op:])
+            else:
+                r_dot = system.rhs_tree([
+                    torch.zeros_like(r) if d is None else d
+                    for r, d in zip(rhs, dots[n_op:])])
+                if any(d is not None for d in dots[:n_op]):
+                    r_dot = tree_map(torch.sub, r_dot, system.product_jvp(
+                        operands, u, dots[:n_op]))
+                du = system.again(operands, r_dot, system.transpose)
+        n_info = len(system.info_fields) if system.return_info else 0
+        return tuple(tree_flatten(du)[0]) + (None,) * n_info
 
     @staticmethod
     def vmap(info, in_dims, system, *tensors):
         if system.sharding is not None:
-            raise NotImplementedError(
-                "torch.func.vmap over a sharded implicit solve is not "
-                "supported: its collectives and host-read loops cannot take "
-                "vmap's batched tensors; put the batch on the mesh's batch "
-                "axis (SolveSharding(..., batch_ndim=1)) instead")
+            # the sharded solvers batch themselves: one solve where the
+            # operator is shared, one per slice otherwise
+            # (``distributed.sharded_operators._SolveJob``)
+            out = torch.func.vmap(
+                lambda *ts: _SystemSolve.forward(system, *ts),
+                in_dims=in_dims[1:], randomness=info.randomness)(*tensors)
+            return out, (0,) * len(out)
         tensors, dims = batch_first(tensors, in_dims[1:])
-        x_star, theta, rhs = system.flat.trees(tensors)
-        x_dims, th_dims, rhs_dims = system.flat.dims(dims)
-        rhs = tree_map(lambda r, d: r if d is not None else
-                       r.expand((info.batch_size,) + tuple(r.shape)),
-                       rhs, rhs_dims)
-        op = _BatchedSystem(system, (x_star, theta), (x_dims, th_dims), rhs)
-        out = system.apply(op, rhs, 1)
+        batch, unbatch = system.batched(tensors, dims, info.batch_size)
+        # applied again, not solved here: a derivative level below this
+        # vmap (jacfwd(jacfwd)) then differentiates it through the rules
+        out = unbatch(_SystemSolve.apply(batch, *batch.flat.tensors))
         return out, (0,) * len(out)
 
 
@@ -563,7 +818,8 @@ def root_vjp(F: Callable, x_star, theta_args: tuple, cotangent,
         solve=solve, tol=tol, maxiter=maxiter, ridge=ridge, precond=precond,
         backward=backward, backward_iters=backward_iters,
         error_estimate=error_estimate, return_info=return_info,
-        system_operator=system_operator, direction="vjp", sharding=sharding)
+        system_operator=system_operator, direction="vjp", sharding=sharding,
+        source="root_vjp")
     return ls._maybe_info(_theta_vjp(F, x_star, theta_args, u, sharding),
                           info, return_info)
 
@@ -590,7 +846,7 @@ def root_jvp(F: Callable, x_star, theta_args: tuple, tangents: tuple,
         maxiter=maxiter, ridge=ridge, precond=precond, backward=backward,
         backward_iters=backward_iters, error_estimate=error_estimate,
         return_info=return_info, system_operator=system_operator,
-        direction="jvp", sharding=sharding)
+        direction="jvp", sharding=sharding, source="root_jvp")
     return ls._maybe_info(u, info, return_info)
 
 
@@ -603,6 +859,24 @@ def _check_solver_arity(spec: ImplicitDiffSpec, n_theta: int):
         raise ValueError(
             f"nondiff_argnums {spec.nondiff_argnums} out of range for a "
             f"solver called with {n_theta} theta argument(s)")
+
+
+def _diff_levels(tensors) -> set:
+    """The ``torch.func`` differentiation levels (``grad`` / ``vjp`` /
+    ``jvp``; not ``vmap``) at which any of ``tensors`` is wrapped."""
+    from torch._C import _functorch
+    from torch._functorch import pyfunctorch
+    kinds = {i.level(): i.key().name
+             for i in pyfunctorch.retrieve_all_functorch_interpreters()}
+    levels = set()
+    for t in tensors:
+        while isinstance(t, torch.Tensor) and \
+                _functorch.is_functorch_wrapped_tensor(t):
+            level = _functorch.maybe_get_level(t)
+            if kinds.get(level) in ("Grad", "Jvp"):
+                levels.add(level)
+            t = _functorch.get_unwrapped(t)
+    return levels
 
 
 class _Call:
@@ -628,6 +902,130 @@ class _Call:
         # arguments (``residual()``): one spec per tensor
         self.sharding = None if spec.sharding is None else \
             _per_tensor_sharding(spec.sharding, self.args)
+        # the innermost torch.func differentiation level θ is tracked at
+        # (None outside torch.func), and whether a plain-autograd backward
+        # has already built a graph (``create_graph=True``): see ``outer``
+        levels = _diff_levels(self.args.tensors)
+        self.innermost = max(levels) if levels else None
+        self.graph_built = False
+        # the solver runtime's loops (``IterativeSolver.run``): a
+        # stochastic solver's iterate is no root of F, so its outer
+        # derivative is the loop's own (``unrolled``); any other loop, like
+        # the JAX package's while_loop, has no reverse derivative of its
+        # own (``loop``; see ``outer``)
+        owner = getattr(solver, "__self__", None)
+        self.unrolled = bool(getattr(owner, "is_stochastic", False))
+        self.loop = type(owner).__name__ if hasattr(owner, "_masked_loop") \
+            and not self.unrolled else None
+        # a batch of calls (``batched``): per enclosing vmap level,
+        # outermost first, the in_dims of ``tensors`` and the randomness
+        self.levels = ()
+
+    def batched(self, dims, randomness) -> "_Call":
+        """This call over one more ``vmap`` level (its ``vmap`` rule):
+        ``dims`` (0 or None) say which tensors carry the new leading
+        axis."""
+        call = copy.copy(self)
+        call.levels = ((tuple(dims), randomness),) + self.levels
+        return call
+
+    def run_solver(self, tensors) -> tuple:
+        """The wrapped solver on the call's tensors, under a
+        ``torch.func.vmap`` per level of a batch: x*'s tensors, then
+        aux's."""
+        def one(*ts):
+            init, theta = self.rebuild(ts)
+            out = self.solver(init, *theta)
+            self.x = Flat(out[0] if self.spec.has_aux else out)
+            self.aux = Flat(out[1] if self.spec.has_aux else None)
+            return tuple(self.x.tensors + self.aux.tensors)
+
+        for dims, randomness in reversed(self.levels):
+            one = torch.func.vmap(one, in_dims=dims, randomness=randomness)
+        return one(*tensors)
+
+    def per_instance(self, fn, theta, x, extra, *, extra_like_theta: bool,
+                     sum_shared: bool) -> tuple:
+        """``fn(θ's tensors, x*'s, extra)`` of one instance, mapped over
+        a batch's levels: ``extra`` carries the batch axes of θ (tangents)
+        or of x* (cotangents); with ``sum_shared`` an output (a θ
+        cotangent) is summed over each level at which its θ tensor is
+        shared."""
+        if not self.levels:
+            return fn(theta, x, extra)
+        n_th, n_x = len(theta), len(x)
+
+        def one(*a):
+            return fn(a[:n_th], a[n_th:n_th + n_x], a[n_th + n_x:])
+
+        for dims, randomness in reversed(self.levels):
+            th_dims = dims[self.n_init:]
+            one = torch.func.vmap(
+                one, in_dims=th_dims + (0,) * n_x + (
+                    th_dims if extra_like_theta else (0,) * len(extra)),
+                randomness=randomness)
+        out = one(*theta, *x, *extra)
+        if not sum_shared:
+            return out
+        slots = [i for i, t in enumerate(theta) if _is_diff_leaf(t)]
+        summed = []
+        for i, g in zip(slots, out):
+            for k in reversed(range(len(self.levels))):
+                if self.levels[k][0][self.n_init + i] is None:
+                    g = g.sum(k)
+            summed.append(g)
+        return tuple(summed)
+
+    def outer(self) -> bool:
+        """Whether the running derivative rule is an outer one: x*(θ)'s
+        derivative taken to differentiate a derivative of it (the outer
+        ``torch.func`` level of ``hessian``, or the second
+        ``torch.autograd.grad`` after one with ``create_graph=True``).
+        The JAX package's custom rule serves only the innermost level; at
+        the outer ones JAX differentiates the wrapped solver itself.  The
+        port gives x*'s exact derivative there: implicitly (the spec's
+        routed solver, whatever the approximate ``backward``), equal to
+        the solver's own to the tolerances, or for a stochastic solver by
+        differentiating its loop (``unrolled_jvp`` / ``unrolled_vjp``).
+        Such a rule is open to every mode in forward mode (``jacfwd(grad)``
+        under ``mode="vjp"``), and in reverse mode to ``mode="auto"``
+        through no loop of the solver runtime (``loop``)."""
+        level = torch._C._functorch.maybe_current_level()
+        if level is not None and self.innermost is not None:
+            return level < self.innermost
+        return self.graph_built
+
+    def _x_of(self, init_tensors, theta_tensors):
+        """x*'s tensors as a function of θ's floating-point ones, by
+        running the wrapped solver again: ``(that function, those
+        tensors, their slots)``."""
+        slots = [i for i, t in enumerate(theta_tensors) if _is_diff_leaf(t)]
+
+        def x_of(*diff):
+            full = list(theta_tensors)
+            for i, t in zip(slots, diff):
+                full[i] = t
+            out = self.run_solver(list(init_tensors) + full)
+            return out[:len(self.x.tensors)]
+
+        return x_of, [theta_tensors[i] for i in slots], slots
+
+    def unrolled_jvp(self, init_tensors, theta_tensors, theta_dot):
+        """x*'s tangent as the wrapped solver's own (see ``outer``)."""
+        x_of, primals, slots = self._x_of(init_tensors, theta_tensors)
+        return torch.func.jvp(x_of, tuple(primals),
+                              _tangents(theta_tensors, theta_dot, slots))[1]
+
+    def unrolled_vjp(self, init_tensors, theta_tensors, ct) -> tuple:
+        """θ's cotangents through the wrapped solver's own computation
+        (see ``outer``); ``None`` for a tensor that is not
+        floating-point."""
+        x_of, primals, slots = self._x_of(init_tensors, theta_tensors)
+        _, vjp_fun = torch.func.vjp(x_of, *primals)
+        grads = [None] * len(theta_tensors)
+        for i, g in zip(slots, vjp_fun(tuple(ct))):
+            grads[i] = g
+        return tuple(grads)
 
     def rebuild(self, tensors):
         """``(init, theta)`` with the Function's inputs put back."""
@@ -673,11 +1071,7 @@ class _ImplicitFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(call: _Call, *tensors):
-        init, theta = call.rebuild(tensors)
-        out = call.solver(init, *theta)
-        call.x = Flat(out[0] if call.spec.has_aux else out)
-        call.aux = Flat(out[1] if call.spec.has_aux else None)
-        return tuple(t.detach() for t in call.x.tensors + call.aux.tensors)
+        return tuple(t.detach() for t in call.run_solver(tensors))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -687,70 +1081,139 @@ class _ImplicitFunction(torch.autograd.Function):
         theta_tensors = inputs[1 + call.n_init:]
         ctx.n_theta = len(theta_tensors)
         ctx.mark_non_differentiable(*output[ctx.n_x:])
-        ctx.save_for_backward(*theta_tensors, *output[:ctx.n_x])
-        ctx.save_for_forward(*theta_tensors, *output[:ctx.n_x])
+        saved = (*theta_tensors, *output[:ctx.n_x],
+                 *inputs[1:1 + call.n_init])
+        ctx.save_for_backward(*saved)
+        ctx.save_for_forward(*saved)
 
     @staticmethod
     def vmap(info, in_dims, call, *tensors):
-        # the forward of a batch: the solver itself under torch.func.vmap
-        # (run()'s loop takes a batch through its own vmap rule)
-        out = torch.func.vmap(
-            lambda *ts: _ImplicitFunction.forward(call, *ts),
-            in_dims=in_dims[1:], randomness=info.randomness)(*tensors)
+        # the batch as one call (the solver under torch.func.vmap; run()'s
+        # loop takes it through its own vmap rule), applied again so that
+        # a derivative level below this vmap reaches the rules
+        tensors, dims = batch_first(tensors, in_dims[1:])
+        batch = call.batched(dims, info.randomness)
+        out = _ImplicitFunction.apply(batch, *tensors)
+        call.x, call.aux = batch.x, batch.aux
         return out, (0,) * len(out)
 
     @staticmethod
-    def _split(ctx):
-        saved = ctx.saved_tensors
-        leaves = tuple(saved[:ctx.n_theta])
-        x_star = ctx.call.x.trees(saved[ctx.n_theta:])[0]
-        return leaves, x_star
+    def _split(ctx, strip: bool = False):
+        """θ's tensors, x*, and init's tensors, as saved; ``strip`` drops
+        the running ``jvp`` rule's own tangents (``_primal``)."""
+        saved = [_primal(t) if strip else t for t in ctx.saved_tensors]
+        n = ctx.n_theta + ctx.n_x
+        return tuple(saved[:ctx.n_theta]), saved[ctx.n_theta:n], saved[n:]
+
+    @staticmethod
+    def _system_kw(call: _Call, outer: bool) -> dict:
+        """``_solve_system``'s routing for a rule of ``call``: the spec's,
+        exact at an outer level (``_Call.outer``); the solve is
+        differentiated in turn as ``custom_linear_solve`` under
+        ``mode="auto"``, as the JAX package's solve routine otherwise."""
+        spec = call.spec
+        return dict(solve=spec.solve,
+                    backward="exact" if outer else spec.backward,
+                    backward_iters=spec.backward_iters, error_estimate=False,
+                    return_info=False, system_operator=spec.system_operator,
+                    sharding=call.sharding,
+                    derivative=("linear_solve" if call.mode == "auto"
+                                else "direct"),
+                    source=f"a solver wrapped with mode={call.mode!r}",
+                    **spec.routing_kwargs())
+
+    @staticmethod
+    def _check_outer(call: _Call):
+        if call.sharding is not None:
+            raise NotImplementedError(_SHARDED_SECOND_ORDER)
+
+    @staticmethod
+    def _check_outer_reverse(call: _Call):
+        _ImplicitFunction._check_outer(call)
+        if call.mode != "auto":
+            raise RuntimeError(
+                f"this solver was wrapped with mode={call.mode!r}; reverse "
+                "mode through a derivative of it (grad of grad, grad of "
+                "jvp) is not available, as in the JAX package — wrap with "
+                "mode='auto'")
+        if call.loop is not None:
+            raise RuntimeError(
+                f"reverse mode through a derivative of {call.loop}.run() "
+                "differentiates its loop, which has no reverse derivative "
+                "(nor has the JAX package's while_loop); forward mode over "
+                "reverse (torch.func.hessian, jacfwd(grad)) is available")
 
     @staticmethod
     def backward(ctx, *grads):
         call = ctx.call
-        if call.mode == "jvp":
+        outer = call.outer()
+        if call.mode == "jvp" and not outer:
             raise RuntimeError("this solver was wrapped with mode='jvp' "
                                "(forward mode only); reverse mode is not "
                                "available — wrap with mode='auto' or 'vjp'")
-        leaves, x_star = _ImplicitFunction._split(ctx)
-        ct = call.x.trees(grads[:ctx.n_x])[0]
-        F = call.residual()
-        spec = call.spec
-        u, _ = _solve_system(
-            F, x_star, leaves, ct, transpose=True, solve=spec.solve,
-            backward=spec.backward, backward_iters=spec.backward_iters,
-            error_estimate=False, return_info=False,
-            system_operator=spec.system_operator, direction="vjp",
-            sharding=call.sharding, **spec.routing_kwargs())
+        leaves, x_star, init = _ImplicitFunction._split(ctx)
+        if outer:
+            _ImplicitFunction._check_outer_reverse(call)
+            if call.unrolled:
+                return (None,) * (1 + call.n_init) + call.unrolled_vjp(
+                    init, leaves, grads[:ctx.n_x])
+        elif torch._C._functorch.maybe_current_level() is None and \
+                torch.is_grad_enabled():
+            call.graph_built = True
+
+        kw = _ImplicitFunction._system_kw(call, outer)
+
+        def one(theta, xs, ct):
+            x_star, F = call.x.trees(xs)[0], call.residual()
+            u, _ = _solve_system(F, x_star, theta, call.x.trees(ct)[0],
+                                 transpose=True, direction="vjp", **kw)
+            return tuple(g for g in _theta_vjp(F, x_star, theta, u,
+                                               call.sharding)
+                         if g is not None)
+
         # integer θ tensors get None, as _theta_vjp gives any such leaf
-        grads = _theta_vjp(F, x_star, leaves, u, call.sharding)
-        return (None,) * (1 + call.n_init) + tuple(grads)
+        diff = iter(call.per_instance(one, leaves, x_star, grads[:ctx.n_x],
+                                      extra_like_theta=False,
+                                      sum_shared=True))
+        return (None,) * (1 + call.n_init) + tuple(
+            next(diff) if _is_diff_leaf(t) else None for t in leaves)
 
     @staticmethod
     def jvp(ctx, _call_dot, *dots):
         call = ctx.call
-        if call.mode == "vjp":
+        outer = call.outer()
+        if call.mode == "vjp" and not outer:
             raise RuntimeError("this solver was wrapped with mode='vjp' "
                                "(reverse mode only); forward mode is not "
                                "available — wrap with mode='auto' or 'jvp'")
-        leaves, x_star = _ImplicitFunction._split(ctx)
+        leaves, x_star, init = _ImplicitFunction._split(ctx, strip=True)
+        theta_dot = tuple(_primal(d) for d in dots[call.n_init:])
         F = call.residual()
-        theta_dot = tuple(dots[call.n_init:])
-        if call.sharding is None:
-            Bv = _leaves_jvp(F, x_star, leaves, theta_dot)
-        else:
-            Bv = call.sharding.theta_jvp(
-                lambda x, th, t: _leaves_jvp(F, x, th, t), x_star, leaves,
-                theta_dot)
-        spec = call.spec
-        dx, _ = _solve_system(
-            F, x_star, leaves, Bv, transpose=False, solve=spec.solve,
-            backward=spec.backward, backward_iters=spec.backward_iters,
-            error_estimate=False, return_info=False,
-            system_operator=spec.system_operator, direction="jvp",
-            sharding=call.sharding, **spec.routing_kwargs())
-        return tuple(tree_flatten(dx)[0]) + (None,) * len(call.aux.tensors)
+        kw = _ImplicitFunction._system_kw(call, outer)
+        with _forward_mode():
+            if outer:
+                _ImplicitFunction._check_outer(call)
+            if outer and call.unrolled:
+                return tuple(call.unrolled_jvp(init, leaves, theta_dot)) + \
+                    (None,) * len(call.aux.tensors)
+
+            def one(theta, xs, theta_dot):
+                x_star = call.x.trees(xs)[0]
+                if call.sharding is None:
+                    Bv = _leaves_jvp(F, x_star, theta, theta_dot)
+                else:
+                    Bv = call.sharding.theta_jvp(
+                        lambda x, th, t: _leaves_jvp(F, x, th, t), x_star,
+                        theta, theta_dot)
+                dx, _ = _solve_system(F, x_star, theta, Bv, transpose=False,
+                                      direction="jvp", **kw)
+                return tuple(tree_flatten(dx)[0])
+
+            dx = call.per_instance(one, leaves, x_star, tuple(
+                torch.zeros_like(t) if d is None else d
+                for t, d in zip(leaves, theta_dot)), extra_like_theta=True,
+                sum_shared=False)
+        return tuple(dx) + (None,) * len(call.aux.tensors)
 
 
 MODES = ("auto", "vjp", "jvp")

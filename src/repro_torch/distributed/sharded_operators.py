@@ -45,9 +45,13 @@ solvers make; under pure batch sharding it reduces over no axis at all.
 The mesh inside ``body`` is in scope for the hook, as JAX's axis names
 are inside ``shard_map``.
 
-A sharded solve does not run under ``torch.func.vmap`` (its collectives
-and host-read loop cannot take vmap's batched tensors): it raises
-``NotImplementedError``; put the batch on the mesh's batch axis instead.
+Under ``torch.func.vmap`` (plain tensors; DTensors do not run under
+``torch.func``) the collectives and host-read loops cannot take vmap's
+batched tensors, so a batching rule takes the batch apart
+(``_VmapLoop``): a batch of right-hand sides against one batch-sharded
+operator folds into the operator's batch and runs as ONE solve; anything
+else (a batch of operators, a ``shard_map`` body) runs one slice at a
+time.
 
 Shard-locality contract
 -----------------------
@@ -83,7 +87,9 @@ from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 from repro_torch.core import linear_solve as ls
 from repro_torch.core import operators as ops
-from repro_torch.core._tree import _has_dtensor, is_batched, tree_map
+from repro_torch.core._tree import (Flat, _has_dtensor, batch_first,
+                                    is_batched, tree_flatten, tree_map,
+                                    tree_unflatten)
 from repro_torch.core.operators import LinearOperator
 from repro_torch.distributed.spec import (P, PartitionSpec, axes_of,
                                           axis_size, dim_index, placements)
@@ -255,13 +261,11 @@ def _from_local(mesh, t, spec, as_dtensor: bool):
 def _shard_map(mesh, body: Callable, in_specs: tuple, out_specs,
                args: tuple):
     """Run ``body`` on the local shards of ``args`` (one spec tree each)
-    and place its results by ``out_specs`` (see the module docstring)."""
+    and place its results by ``out_specs`` (see the module docstring).
+    Under ``torch.func.vmap`` the batch runs one slice at a time
+    (``_VmapLoop``): the collectives cannot take vmap's batched tensors."""
     if is_batched(args):
-        raise NotImplementedError(
-            "a sharded operator or solve under torch.func.vmap is not "
-            "supported: its collectives and host-read loops cannot take "
-            "vmap's batched tensors; put the batch on the mesh's batch "
-            "axis (batch_ndim=1) instead")
+        return _ShardMapJob(mesh, body, in_specs, out_specs, args).batched()
     as_dtensor = _has_dtensor(args)
     local = [_zip_map(lambda t, s: _to_local(mesh, t, s), a, s)
              for a, s in zip(args, in_specs)]
@@ -615,6 +619,134 @@ class SolveSharding:
 
 
 # ---------------------------------------------------------------------------
+# torch.func.vmap of a shard_map or a sharded solve
+# ---------------------------------------------------------------------------
+
+class _VmapLoop(torch.autograd.Function):
+    """A job (``_ShardMapJob`` / ``_SolveJob``) on its flat tensors, whose
+    ``vmap`` rule runs the batch as one job when the job can fold the
+    mapped axis into its own batch (``fold``), else one job per slice.
+    Each job is applied again, so that nested vmaps batch in turn.
+    Forward only: a sharded solve is not differentiated again."""
+
+    @staticmethod
+    def forward(job, *tensors):
+        return job.run(tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, job, *tensors):
+        tensors, dims = batch_first(tensors, in_dims[1:])
+        folded = job.fold(tensors, dims, info.batch_size)
+        if folded is not None:
+            out = folded
+        else:
+            slices = [_VmapLoop.apply(job, *(t if d is None else t[i]
+                                             for t, d in zip(tensors, dims)))
+                      for i in range(info.batch_size)]
+            out = tuple(torch.stack(o) for o in zip(*slices))
+        return out, (0,) * len(out)
+
+
+class _ShardMapJob:
+    """``_shard_map(mesh, body, in_specs, out_specs, args)`` as a job of
+    ``_VmapLoop`` (no fold: ``body`` is any per-shard function)."""
+
+    def __init__(self, mesh, body, in_specs, out_specs, args):
+        self.mesh, self.body = mesh, body
+        self.in_specs, self.out_specs = in_specs, out_specs
+        self.args = Flat(*args)
+        self.out = None
+
+    def run(self, tensors) -> tuple:
+        out = _shard_map(self.mesh, self.body, self.in_specs,
+                         self.out_specs, tuple(self.args.trees(tensors)))
+        leaves, self.out = tree_flatten(out)
+        return tuple(leaves)
+
+    def fold(self, tensors, dims, size):
+        return None
+
+    def batched(self):
+        out = _VmapLoop.apply(self, *self.args.tensors)
+        return tree_unflatten(list(out), self.out)
+
+
+def _fold_rows(t, n_slices: int, n_inst: int, mapped: bool):
+    """``(n_inst · n_slices, ...)`` rows, instance-major: a mapped tensor
+    ``(n_slices, n_inst, ...)`` moves its instance axis first; a shared
+    one ``(n_inst, ...)`` is repeated per slice."""
+    if mapped:
+        t = t.movedim(0, 1)
+    else:
+        t = t.unsqueeze(1).expand((n_inst, n_slices) + tuple(t.shape[1:]))
+    return t.reshape((n_inst * n_slices,) + tuple(t.shape[2:]))
+
+
+class _SolveJob:
+    """A sharded registry solve (``_sharded_call``) as a job of
+    ``_VmapLoop``: its tensors are the operator's operands', then the
+    right-hand side's and the warm start's.  Its fold: a batch of
+    right-hand sides (and warm starts) against one operator whose operands
+    all carry the mesh's batch axis first becomes ONE solve of ``B·V``
+    instances, each instance's ``V`` right-hand sides side by side, so
+    that every rank keeps its own instances."""
+
+    def __init__(self, inner, name, op, b, init, kw):
+        self.inner, self.name, self.op, self.kw = inner, name, op, kw
+        self.flat = Flat(op.operands, b, init)
+        self.n_op = self.flat.counts[0]
+        self.info = None
+
+    def run(self, tensors) -> tuple:
+        operands, b, init = self.flat.trees(tensors)
+        op = self.op
+        if self.n_op:
+            op = ShardedOperator(op._factory, op.mesh, op.in_specs,
+                                 out_specs=op.out_specs,
+                                 operands=tuple(operands),
+                                 operand_specs=op.operand_specs,
+                                 reduce=op._reduce_arg)
+        out = _sharded_call(self.inner, self.name, op, b, init=init,
+                            **self.kw)
+        x, info = out if self.kw["return_info"] else (out, None)
+        leaves, self.x = tree_flatten(x)
+        if info is None:
+            return tuple(leaves)
+        self.info = [f for f, v in zip(info._fields, info) if v is not None]
+        return tuple(leaves) + tuple(getattr(info, f) for f in self.info)
+
+    def unpack(self, out):
+        """``_sharded_call``'s result from the job's flat outputs."""
+        n = self.flat.counts[1]
+        x = tree_unflatten(list(out[:n]), self.x)
+        if not self.kw["return_info"]:
+            return x
+        return x, ls.SolveInfo(**dict(zip(self.info, out[n:])))
+
+    def fold(self, tensors, dims, size):
+        op, n = self.op, self.n_op
+        leads = []
+        _zip_map(lambda t, s: leads.append(s[0] if len(s) else None)
+                 if isinstance(t, torch.Tensor) else None, op.operands,
+                 op.operand_specs)
+        if not n or op.batch_ndim != 1 or not op._batch_axes or \
+                any(d is not None for d in dims[:n]) or \
+                any(set(axes_of(lead)) != set(op._batch_axes)
+                    for lead in leads):
+            return None
+        n_inst = tree_flatten(op.example)[0][0].shape[0]
+        folded = [_fold_rows(t, size, n_inst, d is not None)
+                  for t, d in zip(tensors, [None] * n + list(dims[n:]))]
+        out = _VmapLoop.apply(self, *folded)
+        return tuple(o.reshape((n_inst, size) + tuple(o.shape[1:]))
+                     .movedim(1, 0) for o in out)
+
+
+# ---------------------------------------------------------------------------
 # sharded registry solvers: the whole masked loop on the local shards
 # ---------------------------------------------------------------------------
 
@@ -642,8 +774,14 @@ def _info_specs(op: ShardedOperator):
 def _sharded_call(inner: Callable, name: str, matvec, b, *, init=None,
                   return_info: bool = False, batch_ndim: int = 0,
                   with_reduce: bool = True, **kw):
-    """Run ``inner(local_op, b_local, ...)`` on the local shards."""
+    """Run ``inner(local_op, b_local, ...)`` on the local shards (under
+    ``torch.func.vmap`` through ``_SolveJob``)."""
     op = _require_sharded(name, matvec)
+    if is_batched(op.operands, b, init):
+        job = _SolveJob(inner, name, op, b, init,
+                        dict(kw, return_info=return_info,
+                             batch_ndim=batch_ndim, with_reduce=with_reduce))
+        return job.unpack(_VmapLoop.apply(job, *job.flat.tensors))
     if batch_ndim not in (0, op.batch_ndim):
         raise ValueError(f"batch_ndim={batch_ndim} does not match the "
                          f"sharded operator's batch_ndim={op.batch_ndim}")

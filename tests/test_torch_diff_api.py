@@ -490,19 +490,24 @@ def test_vmap_over_run_matches_jax_vmap(name):
 
 
 def test_second_derivative_through_the_solve_raises(data):
-    """Documented difference (ROADMAP C): the implicit linear solve is one
-    ``torch.autograd.Function`` that is not differentiated again, so a
-    second derivative through it raises where JAX transposes
-    ``custom_linear_solve`` once more; first derivatives are unaffected."""
+    """Once a documented raise, now parity: the implicit linear solve is
+    differentiated again, with ``lax.custom_linear_solve``'s semantics, so
+    ``grad(grad)`` equals ``jax.grad(jax.grad)`` and the closed form
+    d²(Σx*²)/dθ² = 2(x'·x' + x*·x''), x'' = −2A⁻¹x'; first derivatives
+    are unaffected."""
     Xn, yn, _ = data
-    _, tsolver = _ridge_solvers(Xn, yn, "cg")
+    jsolver, tsolver = _ridge_solvers(Xn, yn, "cg")
     loss = lambda t: (tsolver(None, t) ** 2).sum()
     th = torch.tensor(0.7, dtype=torch.float64)
     x, dx = _closed_form(Xn, yn, 0.7)
     np.testing.assert_allclose(float(torch.func.grad(loss)(th)), 2 * x @ dx,
                                atol=ATOL)
-    with pytest.raises(NotImplementedError, match="second derivative"):
-        torch.func.grad(torch.func.grad(loss))(th)
+    A = Xn.T @ Xn + 0.7 * np.eye(D)
+    ddx = -2 * np.linalg.solve(A, dx)
+    want = jax.grad(jax.grad(lambda t: jnp.sum(jsolver(None, t) ** 2)))(0.7)
+    got = float(torch.func.grad(torch.func.grad(loss))(th))
+    np.testing.assert_allclose(got, float(want), atol=ATOL)
+    np.testing.assert_allclose(got, 2 * (dx @ dx + x @ ddx), atol=ATOL)
 
 
 def test_vmap_output_takes_optinfo_tensor_fields():

@@ -155,6 +155,20 @@ CHILD = textwrap.dedent("""
                                lam)
     res["lam_grad"] = g
 
+    # 4b. torch.func.vmap of a sharded solve (a batch of right-hand sides
+    #     against one operator: one folded solve) and of a sharded
+    #     gradient (over the cotangent seed, and over θ: one per slice)
+    op = ShardedOperator(ops.DenseOperator(D["A"], positive_definite=True),
+                         mesh, P("data", None))
+    res["vmap_x"] = torch.func.vmap(lambda bi: ls.solve(
+        op, bi, method="sharded_cg", tol=1e-10))(D["bs"])
+    dec = implicit_diff(spec)(lambda init, t, X, y: local_solver(t, X, y))
+    grad = torch.func.grad(lambda t, s: (dec(None, t, D["X"], D["y"]) * s)
+                           .sum())
+    res["vmap_seed_grad"] = torch.func.vmap(grad, in_dims=(None, 0))(
+        D["theta"], D["seeds"])
+    res["vmap_theta_grad"] = torch.func.vmap(grad)(D["thetas"], D["seeds"])
+
     # 4. the pipeline at S = world
     stages = make_solve_mesh(axis="stage", device="cpu")
     res["pipe"] = pipeline_forward(lambda w, h: torch.tanh(h @ w), D["W"],
@@ -179,6 +193,9 @@ def _inputs():
         dg=1.0 + npr.rand(N_DIAG), db=npr.randn(N_DIAG),
         X=npr.randn(B, M_ROWS, D_RIDGE), y=npr.randn(B, M_ROWS),
         theta=np.linspace(0.5, 2.0, B), lam=np.array(0.7),
+        bs=npr.randn(3, B, D_CG), seeds=npr.randn(3, B, D_RIDGE),
+        thetas=np.linspace(0.5, 2.0, B)[None] * np.array([[1.0], [1.5],
+                                                           [2.0]]),
         W=0.3 * npr.randn(L_PIPE, D_PIPE, D_PIPE),
         xs=npr.randn(M_PIPE, MB_PIPE, D_PIPE))
 
@@ -269,6 +286,35 @@ def test_sharded_ridge_hypergradient_matches_single_device_jax(ranks):
     g, g_lam = _jax_ridge_grad(D)
     np.testing.assert_allclose(got["ridge_grad"], g, atol=1e-8)
     np.testing.assert_allclose(got["lam_grad"], g_lam, atol=1e-8)
+
+
+def test_vmap_of_sharded_solves_matches_jax_vmap(ranks):
+    """``torch.func.vmap`` of a sharded solve and of a sharded gradient on
+    the ranks against ``jax.vmap`` of the single-device ones."""
+    _, D, got = ranks
+    A = jops.DenseOperator(jnp.asarray(D["A"]), positive_definite=True)
+    want = jax.vmap(lambda bi: jls.solve(A, bi, method="cg", tol=1e-10))(
+        jnp.asarray(D["bs"]))
+    np.testing.assert_allclose(got["vmap_x"], np.asarray(want), atol=1e-10)
+
+    def F(x, theta, X, y):
+        r = jnp.einsum("bmd,bd->bm", X, x) - y
+        return jnp.einsum("bmd,bm->bd", X, r) + theta[:, None] * x
+
+    def solver(init, theta, X, y):
+        A = jnp.einsum("bmd,bme->bde", X, X) \
+            + theta[:, None, None] * jnp.eye(X.shape[-1])
+        return jnp.linalg.solve(
+            A, jnp.einsum("bmd,bm->bd", X, y)[..., None])[..., 0]
+
+    dec = jimplicit(JSpec(optimality_fun=F, solve="cg", tol=1e-12))(solver)
+    X, y = jnp.asarray(D["X"]), jnp.asarray(D["y"])
+    grad = jax.grad(lambda t, s: jnp.sum(dec(None, t, X, y) * s))
+    for key, axes, theta in (("vmap_seed_grad", (None, 0), D["theta"]),
+                             ("vmap_theta_grad", (0, 0), D["thetas"])):
+        want = jax.vmap(grad, in_axes=axes)(jnp.asarray(theta),
+                                            jnp.asarray(D["seeds"]))
+        np.testing.assert_allclose(got[key], np.asarray(want), atol=1e-8)
 
 
 def test_pipeline_forward_matches_the_sequential_forward(ranks):

@@ -58,6 +58,7 @@ from repro_torch.distributed.sharded_operators import (ShardedOperator,
                                                        SolveSharding,
                                                        instance_axes,
                                                        psum_reduction)
+from repro_torch.distributed import sharded_operators as dso
 from repro_torch.distributed.spec import P
 from repro_torch.launch import mesh as tmesh_mod
 
@@ -501,18 +502,46 @@ def test_jacobi_precond_through_sharded_cg(npr, mesh, jmesh):
 
 def test_vmap_of_sharded_solve_raises_and_a_loop_equals_jax_vmap(
         npr, mesh, jmesh):
+    """Once a documented raise, now parity: ``torch.func.vmap`` of a
+    sharded solve equals ``jax.vmap``'s and the loop of single solves.  A
+    batch of right-hand sides against the one operator folds into the
+    operator's batch: ONE sharded solve; a batch of operators runs one
+    solve per slice."""
     d = 4
     A = _spd(npr, B, d)
     rhs = npr.randn(3, B, d)
     sh, jsh = _solver_pair(npr, mesh, jmesh, A, positive_definite=True)
-    with pytest.raises(NotImplementedError, match="vmap"):
-        torch.func.vmap(lambda bi: ls.solve(sh, bi, method="sharded_cg",
-                                            tol=1e-10))(_t(rhs))
+    executed = []
+
+    def counting(matvec, b, **kw):
+        executed.append(tuple(b.shape))
+        return dso.sharded_solve_cg(matvec, b, **kw)
+
+    ls.register_solver("counting_sharded_cg_vmap", counting,
+                       symmetric_only=True, supports_precond=True)
+    try:
+        xv, (_, _, converged) = torch.func.vmap(lambda bi: (
+            lambda x, info: (x, tuple(info[:3])))(*ls.solve(
+                sh, bi, method="counting_sharded_cg_vmap", tol=1e-10,
+                return_info=True)))(_t(rhs))
+    finally:
+        ls._REGISTRY.pop("counting_sharded_cg_vmap", None)
+    assert len(executed) == 1
     xs = torch.stack([ls.solve(sh, _t(r), method="sharded_cg", tol=1e-10)
                       for r in rhs])
     jxs = jax.vmap(lambda bi: jls.solve(jsh, bi, method="sharded_cg",
                                         tol=1e-10))(jnp.asarray(rhs))
-    np.testing.assert_allclose(_np(xs), np.asarray(jxs), atol=SOL_TOL)
+    np.testing.assert_allclose(_np(xv), np.asarray(jxs), atol=SOL_TOL)
+    np.testing.assert_allclose(_np(xv), _np(xs), atol=SOL_TOL)
+    assert converged.shape == (3, B) and bool(converged.all())
+    # a batch of operators: one sharded solve per slice
+    As = np.stack([_spd(npr, B, d) for _ in range(3)])
+    xo = torch.func.vmap(lambda Ai, bi: ls.solve(
+        ShardedOperator(ops.DenseOperator(Ai, positive_definite=True), mesh,
+                        P("data", None)), bi, method="sharded_cg",
+        tol=1e-10))(_t(As), _t(rhs))
+    np.testing.assert_allclose(
+        _np(xo), np.linalg.solve(As, rhs[..., None])[..., 0], atol=1e-8)
 
 
 def test_dispatch_event_carries_mesh_size(npr, mesh):
@@ -678,14 +707,26 @@ def test_grad_executes_one_sharded_solve(npr, mesh, jmesh):
 
 
 def test_vmap_of_a_sharded_gradient_raises(npr, mesh, jmesh):
+    """Once a documented raise, now parity: ``vmap`` of a gradient whose
+    backward solve is sharded, over the cotangent seed (the operator
+    shared: one folded solve) and over θ (one solve per slice), equals
+    ``jax.vmap``'s."""
     X, y, theta = _ridge_data(npr)
-    spec, _ = _specs(mesh, jmesh)
+    spec, jspec = _specs(mesh, jmesh)
     dec = implicit_diff(spec)(T_SOLVER)
+    jdec = jimplicit(jspec)(J_SOLVER)
+    seeds = npr.randn(3, B, D_RIDGE)
+    thetas = theta[None] * np.array([1.0, 1.5, 2.0])[:, None]
     grad = torch.func.grad(lambda t, s: (dec(None, t, _t(X), _t(y)) * s)
                            .sum())
-    with pytest.raises(NotImplementedError, match="vmap"):
-        torch.func.vmap(grad, in_dims=(None, 0))(_t(theta),
-                                                 torch.ones(3, B, D_RIDGE))
+    jgrad = jax.grad(lambda t, s: jnp.sum(
+        jdec(None, t, jnp.asarray(X), jnp.asarray(y)) * s))
+    for in_dims, args in (((None, 0), (theta, seeds)),
+                          ((0, 0), (thetas, seeds))):
+        got = torch.func.vmap(grad, in_dims=in_dims)(*map(_t, args))
+        want = jax.vmap(jgrad, in_axes=in_dims)(*map(jnp.asarray, args))
+        np.testing.assert_allclose(_np(got), np.asarray(want),
+                                   atol=GRAD_TOL)
 
 
 def test_spec_validation(mesh):
