@@ -366,8 +366,25 @@ Each phase prints one line:
      (phase 28's reckoning with the attention run whole on each rank of
      the model axis, whose 16 the 20 heads do not divide; the unsharded
      reckoning is the control), each cell's roofline terms printed.
+ 30. second derivatives through the implicit solve, phase 17's 64 ridge
+     problems (d = 512, float32, ``pallas_cg``, tol 1e-6): (a)
+     ``vmap(hessian)``, (b) ``vmap(jacfwd(jacfwd))``, (c)
+     ``vmap(grad(grad))`` of Σx*², each within 1e-3 of the float64 closed
+     form (its rows rolled are the control) and 1e-4 of a loop over 8,
+     exactly three C8 launches (the loop 24); (d) on a single-rank NCCL
+     mesh, ``vmap`` of ``sharded_cg`` over 4 right-hand sides and of a
+     sharded gradient over 4 seeds within 1e-4 of loops, and
+     ``vmap(hessian)`` of phase 24's sharded ridge over θ and 2θ: three
+     ``sharded_cg`` solves, 0 launches, its diagonal within 1e-3 of (a)'s
+     kernel path and the closed form, nothing off it; (e) reverse mode
+     through ``pallas_cg``'s own rule: ``vmap`` of ``mode="vjp"``
+     ``grad(grad)`` and of ``mode="jvp"`` ``grad(jvp)`` (three C8
+     launches each) and of ``grad`` of ``root_vjp`` at a fixed x* (two),
+     each within 1e-3 of the float64 closed form (``root_vjp``'s, a dot
+     product (A⁻¹v)·(A⁻¹x*) that a random v can bring near 0, relative to
+     ‖A⁻¹v‖‖A⁻¹x*‖).
 
-Phases 17-29 each print their duration on a line of their own, and the
+Phases 17-30 each print their duration on a line of their own, and the
 script its total.  The run
 fails at once if ``REPRO_AUTOTUNE_CACHE`` is set: phases 3-20 hold every
 batched-CG launch to the kernel's rule, which only a cold tuning cache
@@ -377,7 +394,8 @@ Kernel launches are counted by each kernel's ``ops.LAUNCHES`` (and, for
 batched_cg, ``ops.LAUNCHES_BY_LAYOUT``; for flash attention,
 ``ops.LAUNCHES_BY_ROUTE``), set to 0 just before each main-path phase
 (4-7, 17's batched derivatives, 19's exact buckets, 22's solves and
-24's single-device gradient for batched_cg — not 22's sweep, whose
+24's single-device gradient and 30's vmapped second derivatives for
+batched_cg — not 22's sweep, whose
 launches it prints apart —
 phase 6's forward and backward each on their own, 10 for simplex_proj,
 each kernel prefill of 14, 25-27 and 29 (c) for flash_attention and of
@@ -3817,6 +3835,11 @@ def swapped(op):
 # ---------------------------------------------------------------------------
 
 SECOND = dict(B=64, d=512, m=1024, loop=8, rhs=4)   # phase 17's ridge batch
+# phase 30 (e): the solves of each derivative, each one launch for the batch
+# (the inner one, x*'s outer one and the flipped solve of the inner one's
+# reverse rule; root_vjp's has no x* of its own)
+SECOND_E_LAUNCHES = {"vjp grad(grad)": 3, "jvp grad(jvp)": 3,
+                     "grad(root_vjp)": 2}
 
 
 def phase_second_order(device, gen, B, d, m, loop, rhs):
@@ -3827,14 +3850,22 @@ def phase_second_order(device, gen, B, d, m, loop, rhs):
     form 2(x'·x' + x*·x'') (x' = −A⁻¹x*, x'' = −2A⁻¹x') and a loop over
     ``loop`` instances; (d) on a single-rank NCCL mesh, ``vmap`` of a
     sharded solve over ``rhs`` right-hand sides and of a sharded gradient
-    over ``rhs`` cotangent seeds against loops of single calls."""
+    over ``rhs`` cotangent seeds against loops of single calls, and
+    ``vmap(hessian)`` of the sharded ridge over θ and 2θ against the
+    kernel path's (a); (e) the solves differentiated in reverse as their
+    routine is: ``vmap`` of ``mode="vjp"`` ``grad(grad)``, of
+    ``mode="jvp"`` ``grad(jvp)`` and of ``grad`` of ``root_vjp`` at a
+    fixed x* (closed form (A⁻¹v)·(A⁻¹x*), a dot product of two nearly
+    orthogonal vectors for a random v, so its error is taken relative to
+    ‖A⁻¹v‖‖A⁻¹x*‖), each against the float64 closed form, their launches
+    counted."""
     import torch
     import torch.distributed as dist
     import torch.func
     from repro_torch.core import custom_root, implicit_diff
     from repro_torch.core import linear_solve as ls
     from repro_torch.core import operators as ops
-    from repro_torch.core.diff_api import ImplicitDiffSpec
+    from repro_torch.core.diff_api import ImplicitDiffSpec, root_vjp
     from repro_torch.distributed import P, ShardedOperator, SolveSharding
     from repro_torch.launch.mesh import make_solve_mesh
     f32 = torch.float32
@@ -3845,9 +3876,10 @@ def phase_second_order(device, gen, B, d, m, loop, rhs):
     def F(x, X, y, t):
         return X.T @ (X @ x - y) / m + t * x
 
-    @custom_root(F, solve="pallas_cg", tol=HYPERGRAD_TOL)
-    def ridge(init, X, y, t):
+    def solve_one(init, X, y, t):
         return torch.linalg.solve(X.T @ X / m + t * eye, X.T @ y / m)
+
+    ridge = custom_root(F, solve="pallas_cg", tol=HYPERGRAD_TOL)(solve_one)
 
     def loss(X, y, t):
         return (ridge(None, X, y, t) ** 2).sum()
@@ -3857,21 +3889,30 @@ def phase_second_order(device, gen, B, d, m, loop, rhs):
         "b": torch.func.jacfwd(torch.func.jacfwd(loss, argnums=2),
                                argnums=2),
         "c": torch.func.grad(torch.func.grad(loss, argnums=2), argnums=2)}
-    Xd = X.double()
-    A = Xd.transpose(1, 2) @ Xd / m + theta.double()[:, None, None] * \
-        torch.eye(d, device=device, dtype=torch.float64)
-    xs = torch.linalg.solve(A, (Xd.transpose(1, 2) @ y.double()[..., None])
-                            [..., 0] / m)
-    x1 = -torch.linalg.solve(A, xs)
-    x2 = -2 * torch.linalg.solve(A, x1)
-    want = 2 * ((x1 * x1).sum(-1) + (xs * x2).sum(-1))
-    del A, Xd
+    def closed(t, v=None):
+        """float64: d²(Σx*²)/dθ² per instance at θ = t, or with ``v``
+        (A⁻¹v)·(A⁻¹x*), root_vjp's derivative at a fixed x*, and
+        ‖A⁻¹v‖‖A⁻¹x*‖, the scale of its rounding."""
+        Xd = X.double()
+        A = Xd.transpose(1, 2) @ Xd / m + t.double()[:, None, None] * \
+            torch.eye(d, device=device, dtype=torch.float64)
+        xs = torch.linalg.solve(A, (Xd.transpose(1, 2) @ y.double()[..., None])
+                                [..., 0] / m)
+        if v is not None:
+            a, b = torch.linalg.solve(A, v.double()), torch.linalg.solve(A, xs)
+            return (a * b).sum(-1), (torch.linalg.vector_norm(a, dim=-1) *
+                                     torch.linalg.vector_norm(b, dim=-1))
+        x1 = -torch.linalg.solve(A, xs)
+        x2 = -2 * torch.linalg.solve(A, x1)
+        return 2 * ((x1 * x1).sum(-1) + (xs * x2).sum(-1))
 
-    res = {"d": d}
+    want = closed(theta)
+    res, values = {"d": d}, {}
     for name, fn in second.items():
         torch.func.vmap(fn)(X, y, theta)             # warm-up, not counted
         cg_counts(reset=True)
         got, s_b = timed(device, lambda: torch.func.vmap(fn)(X, y, theta))
+        values[name] = got
         launches, by_layout = cg_counts()
         cg_counts(reset=True)
         looped, s_l = timed(device, lambda: torch.stack(
@@ -3883,6 +3924,46 @@ def phase_second_order(device, gen, B, d, m, loop, rhs):
             vs_closed=float(rel_rows(got, want).max()),
             control=float(rel_rows(got, want.roll(1, 0)).max()),
             vs_loop=float(rel_rows(got[:loop], looped).max()))
+
+    # (e) reverse mode through the routed pallas_cg itself: a single-mode
+    # wrapper's solve and root_vjp's, whose reverse rule is a flipped solve
+    def mode_loss(mode):
+        wrapped = implicit_diff(F, solve="pallas_cg", tol=HYPERGRAD_TOL,
+                                mode=mode)(solve_one)
+        return lambda X, y, t: (wrapped(None, X, y, t) ** 2).sum()
+
+    loss_vjp, loss_jvp = mode_loss("vjp"), mode_loss("jvp")
+    v = torch.randn(B, d, generator=gen, device=device, dtype=f32)
+    xs32 = torch.func.vmap(solve_one, in_dims=(None, 0, 0, 0))(
+        None, X, y, theta)
+    # (fn, its arguments, the float64 closed form, the scale of an error)
+    reverse = {
+        "vjp grad(grad)": (torch.func.grad(torch.func.grad(
+            loss_vjp, argnums=2), argnums=2), (X, y, theta), want,
+            want.abs()),
+        "jvp grad(jvp)": (torch.func.grad(
+            lambda X, y, t: torch.func.jvp(
+                lambda s: loss_jvp(X, y, s), (t,), (torch.ones_like(t),))[1],
+            argnums=2), (X, y, theta), want, want.abs()),
+        # X and y cross as θ: a solve's batch is its inputs, not captures
+        "grad(root_vjp)": (torch.func.grad(
+            lambda X, y, x, v, t: root_vjp(
+                F, x, (X, y, t), v, solve="pallas_cg",
+                tol=HYPERGRAD_TOL)[2], argnums=4),
+            (X, y, xs32, v, theta), *closed(theta, v))}
+    res["e"] = {}
+    for name, (fn, args, ref, scale) in reverse.items():
+        torch.func.vmap(fn)(*args)                   # warm-up, not counted
+        cg_counts(reset=True)
+        got, s_b = timed(device, lambda: torch.func.vmap(fn)(*args))
+        launches, by_layout = cg_counts()
+        got = got.double()
+        res["e"][name] = dict(
+            launches=launches, by_layout=by_layout, batched_s=s_b,
+            finite=bool(torch.isfinite(got).all()),
+            vs_closed=float(((got - ref).abs() / scale).max()),
+            control=float(((got - ref.roll(1, 0)).abs() / scale).max()))
+    del xs32, v
 
     # (d) vmap over sharded solves on a mesh of one
     check(not dist.is_initialized(), "phase 30: a process group is already "
@@ -3934,8 +4015,31 @@ def phase_second_order(device, gen, B, d, m, loop, rhs):
             [grad(theta, s) for s in seeds]))
         res["d_grad"] = float(rel_rows(gv, gl).max())
         res["d_grad_control"] = float(rel_rows(gv, gl.roll(1, 0)).max())
+
+        # vmap(hessian) of the sharded ridge over θ and 2θ: one folded
+        # sharded solve per level, each Hessian diagonal (the instances are
+        # independent) against the kernel path's (a) at the same θ
+        hess = torch.func.hessian(lambda t: (sharded(None, X, y, t) ** 2)
+                                  .sum())
+        thetas = torch.stack([theta, 2 * theta])
+        cg_counts(reset=True)
+        (res["d_hess_routes"], _, hv), res["d_hess_s"] = timed(
+            device, lambda: dispatched(lambda: torch.func.vmap(hess)(thetas)))
+        res["d_hess_launches"] = cg_counts()[0]
+        kernel = torch.stack([values["a"], torch.func.vmap(second["a"])(
+            X, y, 2 * theta)])
+        diag = torch.diagonal(hv, dim1=-2, dim2=-1)
+        res["d_hess"] = float(rel_rows(diag.flatten(),
+                                       kernel.flatten()).max())
+        res["d_hess_control"] = float(rel_rows(
+            diag.flatten(), kernel.roll(1, 1).flatten()).max())
+        res["d_hess_closed"] = float(rel_rows(diag.flatten(), torch.stack(
+            [want, closed(2 * theta)]).flatten()).max())
+        res["d_hess_offdiag"] = float(
+            (hv - torch.diag_embed(diag)).abs().max() / diag.abs().max())
         res["d_finite"] = bool(torch.isfinite(xv).all() and
-                               torch.isfinite(gv).all())
+                               torch.isfinite(gv).all() and
+                               torch.isfinite(hv).all())
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -3972,6 +4076,27 @@ def check_second_order(r, B, loop):
           f"{VMAP_RTOL}")
     check(r["d_grad_launches"] == 0, f"phase 30 (d): the sharded gradient "
           f"launched the kernel {r['d_grad_launches']} times")
+    routes = r["d_hess_routes"]
+    check(len(routes) == 3 and {s for _, s, _ in routes} == {"sharded_cg"}
+          and r["d_hess_launches"] == 0, f"phase 30 (d): vmap(hessian) of "
+          f"the sharded ridge routed {routes} and launched the kernel "
+          f"{r['d_hess_launches']} times, expected three sharded_cg solves")
+    check(r["d_hess"] <= CLOSED_RTOL < r["d_hess_control"] and
+          r["d_hess_closed"] <= CLOSED_RTOL and
+          r["d_hess_offdiag"] <= CLOSED_RTOL, f"phase 30 (d): the sharded "
+          f"Hessian against the kernel path {r['d_hess']:.3e} (control "
+          f"{r['d_hess_control']:.3e}), against the closed form "
+          f"{r['d_hess_closed']:.3e}, off the diagonal "
+          f"{r['d_hess_offdiag']:.3e}, limit {CLOSED_RTOL}")
+    for name, q in r["e"].items():
+        want = SECOND_E_LAUNCHES[name]
+        check(q["finite"] and q["vs_closed"] <= CLOSED_RTOL < q["control"],
+              f"phase 30 (e) {name}: against the float64 closed form "
+              f"{q['vs_closed']:.3e} (limit {CLOSED_RTOL}, control "
+              f"{q['control']:.3e})")
+        check(q["launches"] == want and q["by_layout"] == {MAIN_LAYOUT: want},
+              f"phase 30 (e) {name}: vmap over {B} launched {q['launches']} "
+              f"{q['by_layout']}, expected {want} {MAIN_LAYOUT} launches")
 
 
 def say_second_order(r, card, B, loop, rhs):
@@ -3992,7 +4117,16 @@ def say_second_order(r, card, B, loop, rhs):
         f"(control {r['d_solve_control']:.2e}); vmap of the sharded "
         f"gradient over {rhs} seeds {r['d_grad_s'] * 1e3:.1f} ms (loop "
         f"{r['d_grad_loop_s'] * 1e3:.1f} ms), rel {r['d_grad']:.2e} "
-        f"(control {r['d_grad_control']:.2e})")
+        f"(control {r['d_grad_control']:.2e}); vmap(hessian) of the sharded "
+        f"ridge over 2 θ: {len(r['d_hess_routes'])} sharded solves in "
+        f"{r['d_hess_s'] * 1e3:.1f} ms, rel vs the kernel path "
+        f"{r['d_hess']:.2e} (control {r['d_hess_control']:.2e}), vs closed "
+        f"form {r['d_hess_closed']:.2e}, off-diagonal "
+        f"{r['d_hess_offdiag']:.2e}; (e) " + "; ".join(
+            f"vmap of {n}: {q['launches']} launches {q['by_layout']} in "
+            f"{q['batched_s'] * 1e3:.1f} ms, rel vs float64 closed form "
+            f"{q['vs_closed']:.2e} (control {q['control']:.2e})"
+            for n, q in r["e"].items()))
 
 
 def main(argv=None) -> None:
@@ -4680,7 +4814,8 @@ def main(argv=None) -> None:
         + s7["launches"] + s17["grad"]["launches"] \
         + s17["jvp"]["launches"] + run17["launches"] + s19["launches"] \
         + s22["launches"] + s24["single_launches"] \
-        + sum(s30[n]["launches"] for n in "abc")
+        + sum(s30[n]["launches"] for n in "abc") \
+        + sum(q["launches"] for q in s30["e"].values())
     print(json.dumps({"kernels": [{
         "name": "batched_cg", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,

@@ -57,17 +57,27 @@ again), and the rules of the wrapper's Function are differentiable at
 the next level, so ``grad(grad)``, ``torch.func.hessian``
 (``jacfwd(grad)``), ``grad`` of ``jvp`` and ``jacfwd(jacfwd)`` give the
 JAX package's values, ``vmap`` of each one solve per level.  At an outer
-level x*'s own derivative is exact (``_Call.outer``).  A Function's
-``jvp`` rule runs with forward mode off, which would drop an outer
-``jvp``'s tangent of its work; the rules strip their own level's tangent
-and turn forward mode back on (``_primal``).
+level x*'s own derivative is exact (``_Call.outer``: no approximate
+``backward``, no ``ridge``).  A Function's ``jvp`` rule runs with forward
+mode off, which would drop an outer ``jvp``'s tangent of its work; the
+rules strip their own level's tangent and turn forward mode back on
+(``_primal``).
 
 Mode selection (``mode=``): ``"auto"`` (both), ``"vjp"`` (reverse only;
-forward mode raises), ``"jvp"`` (forward only; reverse mode raises).  At
-second order, as in the JAX package, ``"auto"`` gives all four
-combinations, ``"vjp"`` only ``jacfwd(grad)`` and ``"jvp"`` only
-``jacfwd(jacfwd)``; ``root_vjp`` / ``root_jvp`` called directly are
-differentiable in forward mode only.
+forward mode raises), ``"jvp"`` (forward only).  ``"auto"`` gives all
+four second-order combinations.  A single-mode wrapper, and ``root_vjp``
+/ ``root_jvp`` called directly, differentiate their routed routine as it
+stands, as the JAX package's ``custom_vjp`` / ``custom_jvp`` do: forward
+mode always; reverse mode through ``lu``, ``pallas_cg`` and the
+approximate polynomials, never through the loops (``cg``, ``gmres``,
+``normal_cg``, ``bicgstab``: JAX's ``while_loop``s).  So with a loop
+``"vjp"`` gives only ``jacfwd(grad)`` and ``"jvp"`` only
+``jacfwd(jacfwd)``; with ``lu`` ``"vjp"`` adds ``grad(grad)`` and
+``"jvp"`` gives all four.  ``"jvp"``'s own reverse mode transposes its
+tangent solve, which JAX does for ``lu``, ``one_step`` and
+``jacobian_free`` only (``_TRANSPOSABLE``).  One difference: the port's
+``pallas_cg`` op has a forward rule and JAX's Pallas op none, so the
+port gives the forward cells through it that JAX refuses.
 
 Mesh placement (``sharding``, a ``repro_torch.distributed.
 sharded_operators.SolveSharding``): ``A`` becomes a ``ShardedOperator``
@@ -77,9 +87,14 @@ products (``uᵀB``, ``Bθ̇``) run on the local shards too.  Tensors cross
 as ``DTensor``s (nothing gathered) or as plain tensors every rank holds
 alike (global values).  Forward mode takes plain tensors: ``torch.func.
 jvp`` does not trace DTensors.  Under ``torch.func.vmap`` (plain
-tensors) a sharded solve batches itself: one solve where the operator is
-shared, one per slice otherwise.  A second derivative through a sharded
-solve raises ``NotImplementedError``.
+tensors) the solves of a system with a batch axis (``batch_ndim=1``) fold
+the ``vmap`` batch into it: ONE sharded solve a level, the operators
+batched or shared (``_System._folded``); any other sharded solve batches
+itself (one solve where the operator is shared, one per slice
+otherwise).  A derivative of a sharded solve (second order, or
+``root_vjp`` / ``root_jvp`` differentiated) takes plain tensors: its
+rules' products run on the global values, unplaced (``torch.func``
+traces no collective), its solves on the mesh.
 
 Conventions: the wrapped solver has signature ``solver(init, *theta)`` and
 returns ``x*`` (or ``(x*, aux)`` with ``has_aux=True``).  ``F``/``T`` take
@@ -98,12 +113,14 @@ from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 import torch.func
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import linear_solve as ls
 from repro_torch.core import operators as ops
 from repro_torch.core._tree import (Flat, batch_first, canonical,
                                     tree_flatten, tree_leaves, tree_map,
                                     tree_unflatten)
+from repro_torch.distributed.spec import P
 from repro_torch.observability import events as obs_events
 
 
@@ -246,8 +263,8 @@ class ImplicitDiffSpec:
 # ---------------------------------------------------------------------------
 
 def _implicit_system_operator(F: Callable, x_star, theta_args: tuple,
-                              solve, sharding=None, system_operator=None
-                              ) -> ops.LinearOperator:
+                              solve, sharding=None, system_operator=None,
+                              batch_ndim: int = 0) -> ops.LinearOperator:
     """``A = -∂₁F(x*, θ)`` as a ``JacobianOperator``, certified symmetric
     when the routed solver is symmetric-only (``cg``/``pallas_cg``/
     ``sharded_cg``); or the operator the ``system_operator`` factory
@@ -260,7 +277,8 @@ def _implicit_system_operator(F: Callable, x_star, theta_args: tuple,
     if system_operator is None:
         if sharding is None:
             return ops.JacobianOperator(lambda x: F(x, *theta_args), x_star,
-                                        negate=True, symmetric=sym)
+                                        negate=True, symmetric=sym,
+                                        batch_ndim=batch_ndim)
 
         def jacobian_factory(x_local, *theta_local):
             return ops.JacobianOperator(
@@ -353,6 +371,70 @@ def _backward_apply(A, rhs, *, solve, tol, maxiter, ridge, precond,
     return out
 
 
+# The JAX package's solve routines, differentiated as they stand (a
+# "direct" system): in reverse mode ``lu`` (``jnp.linalg.solve``),
+# ``pallas_cg`` (a ``jax.custom_vjp`` op) and the fixed-budget polynomials
+# have a derivative; every other registry solver is a ``while_loop``,
+# which has none.  A ``mode="jvp"`` wrapper's reverse mode transposes its
+# tangent solve, which JAX can do for ``lu`` (a ``custom_linear_solve``
+# inside) and the loop-free polynomials: not for the custom_vjp op, nor
+# for ``neumann_k``'s ``fori_loop``.
+_REVERSIBLE = frozenset({"lu", "pallas_cg", "one_step", "neumann_k",
+                         "jacobian_free"})
+_TRANSPOSABLE = frozenset({"lu", "one_step", "jacobian_free"})
+
+
+def _routine(solve, backward, operator: Callable, rhs, precond) -> str:
+    """What a solve runs: the approximate mode's polynomial, or the
+    registry solver ``route_solve`` picks (``"auto"`` resolved on
+    ``operator()``, a mesh-placed operator's upgrade applied; ``"custom"``
+    for a callable)."""
+    if backward != "exact":
+        return backward
+    if callable(solve):
+        return "custom"
+    if solve == "auto" or solve in ls._SHARDED_UPGRADE:
+        A = operator()
+        if solve == "auto":
+            example = rhs if A.batch_ndim == 0 else \
+                tree_map(lambda t: t[0], rhs)
+            solve = ls._resolve_auto(A, example, precond)
+        if getattr(A, "is_sharded", False):
+            solve = ls._SHARDED_UPGRADE.get(solve, solve)
+    return solve
+
+
+def _tracked(tensors, in_rule: bool) -> bool:
+    """Whether a derivative level will differentiate work done on
+    ``tensors``: a ``torch.func`` level outside the running derivative
+    rule (any level, when ``in_rule`` is False), or plain autograd
+    recording a graph."""
+    tensors = [t for t in tensors if isinstance(t, torch.Tensor)]
+    level = torch._C._functorch.maybe_current_level()
+    levels = _diff_levels(tensors)
+    if level is not None and levels:
+        return not in_rule or min(levels) < level
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _placement(sharding, trees, in_rule: bool):
+    """``sharding``, or ``None`` where a product on plain tensors (every
+    rank's global values) is differentiated (``_tracked``): the product
+    then runs unplaced, since ``torch.func`` traces no collective.
+    DTensors stay on the mesh."""
+    if sharding is None:
+        return None
+    leaves = [t for tree in trees for t in tree_leaves(tree)]
+    if any(isinstance(t, DTensor) for t in leaves):
+        return sharding
+    return None if _tracked(leaves, in_rule) else sharding
+
+
+def _check_plain(tensors):
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise NotImplementedError(_SHARDED_SECOND_ORDER)
+
+
 class _System:
     """One implicit linear system of ``root_vjp`` / ``root_jvp``: how A is
     built (``F`` at ``x*``, θ) and treated, and the trees ``(x*, θ, rhs)``
@@ -363,9 +445,11 @@ class _System:
     ``_SystemSolve``): ``"linear_solve"`` as ``lax.custom_linear_solve``
     (both directions, the same treatment of A: the wrapper's ``"auto"``
     mode) or ``"direct"`` as the JAX package's solve routine itself is
-    differentiated (forward mode only: ``root_vjp`` / ``root_jvp`` called
-    directly and the single-mode wrappers).  ``source`` names what built
-    the system, for the error a derivative that is not available raises."""
+    differentiated (``root_vjp`` / ``root_jvp`` called directly and the
+    single-mode wrappers): forward mode always, reverse mode where the
+    routine has a reverse derivative (``_REVERSIBLE``).  ``source`` names
+    what built the system, for the error a derivative that is not
+    available raises."""
 
     def __init__(self, F, x_star, theta_args, rhs, *, transpose, solve,
                  tol, maxiter, ridge, precond, backward, backward_iters,
@@ -404,13 +488,34 @@ class _System:
                                       self.sharding, self.system_operator)
         return A.T if self.transpose else A
 
+    def matrix(self, x_star, theta) -> ops.LinearOperator:
+        """The matrix whose products the rules differentiate: ``operator``,
+        or for a mesh-placed system the same matrix on every rank's global
+        values (plain tensors), unplaced, since ``torch.func`` traces no
+        collective.  Its solves stay on the mesh (``again``)."""
+        if self.sharding is None:
+            return self.operator(x_star, theta)
+        A = _implicit_system_operator(self.F, x_star, theta, self.solve,
+                                      batch_ndim=self.batch_ndim)
+        return A.T if self.transpose else A
+
+    def routine(self, operands, rhs) -> str:
+        """The routine a solve of this system runs (see ``_routine``)."""
+        return _routine(self.kw["solve"], self.kw["backward"],
+                        lambda: self.operator(*self.operands.trees(operands)),
+                        rhs, self.kw["precond"])
+
     def batched(self, tensors, dims, size: int):
         """This system over a ``vmap`` rule's batch (``tensors`` with their
         batch axes first, ``dims`` 0 or None): ONE system on
         ``_BatchedSystem``.  A system that is already a batch (a ``vmap``
         of a ``vmap``) folds the new axis into its instance axis, so that
         the registry still sees one solve; ``unbatch`` splits the
-        solve's outputs again.  Returns ``(system, unbatch)``."""
+        solve's outputs again.  A mesh-placed system folds the batch into
+        its own instance axis instead (``_folded``).  Returns ``(system,
+        unbatch)``."""
+        if self.sharding is not None:
+            return self._folded(tensors, dims, size)
         n_op = len(self.operands.tensors)
         if self.batch is None:
             folded = [t if d is not None or i < n_op else
@@ -448,6 +553,65 @@ class _System:
         x_star, theta, rhs = self.flat.trees(folded)
         system.flat = Flat(x_star, theta, rhs)
         system.operands = Flat(x_star, theta)
+        return system, unbatch
+
+    def _folded(self, tensors, dims, size: int):
+        """A mesh-placed system (``batch_ndim=1``) over a ``vmap`` rule's
+        batch of ``size``: ONE mesh-placed system whose instance axis holds
+        each instance's ``size`` slices side by side (instance-major, so
+        that every rank keeps its own instances): x* and the right-hand
+        side fold.  A θ tensor shared by the batch stays as it is; any
+        other keeps the batch as a new leading axis, unsplit, its own dims
+        placed as before.  The residual of the folded system maps the
+        original one over the slices, so that each solve of a ``vmap``
+        level stays one registry solve, a ``vmap`` of a ``vmap`` folding
+        again.  θ crosses as its tensors (one spec each)."""
+        n_x, n_th = self.flat.counts[0], self.flat.counts[1]
+        theta_trees = self.flat.trees(self.flat.tensors)[1]
+        specs = _per_tensor_sharding(self.sharding,
+                                     Flat(*theta_trees)).theta_specs
+        th_dims = tuple(dims[n_x:n_x + n_th])
+        th_specs = tuple(s if d is None else P(None, *s)
+                         for s, d in zip(specs, th_dims))
+        folded = list(tensors)
+        for i, (t, d) in enumerate(zip(tensors, dims)):
+            if n_x <= i < n_x + n_th:
+                continue
+            if d is None:
+                t = t.expand((size,) + tuple(t.shape))
+            folded[i] = t.movedim(0, 1).reshape(
+                (t.shape[1] * size,) + tuple(t.shape[2:]))
+        base, F = self.operands, self.F
+
+        def F_folded(x, *theta):
+            xs = tree_flatten(x)[0]
+            n = xs[0].shape[0] // size
+
+            def one(*a):
+                x_i, theta_i = base.trees(list(a))
+                return F(x_i, *theta_i)
+
+            out = torch.func.vmap(
+                one, in_dims=(1,) * len(xs) + th_dims, out_dims=1)(
+                *[t.reshape((n, size) + tuple(t.shape[1:])) for t in xs],
+                *theta)
+            return tree_map(lambda o: o.reshape((n * size,) +
+                                                tuple(o.shape[2:])), out)
+
+        system = copy.copy(self)
+        system.F = F_folded
+        system.sharding = dataclasses.replace(self.sharding,
+                                              theta_specs=th_specs)
+        x_star, _, rhs = self.flat.trees(folded)
+        theta = tuple(folded[n_x:n_x + n_th])
+        system.flat = Flat(x_star, theta, rhs)
+        system.operands = Flat(x_star, theta)
+
+        def unbatch(out):
+            return tuple(o.reshape((o.shape[0] // size, size) +
+                                   tuple(o.shape[1:])).movedim(1, 0)
+                         for o in out)
+
         return system, unbatch
 
     def apply(self, M, rhs, batch_ndim: int) -> tuple:
@@ -513,7 +677,7 @@ class _System:
         """``Ṁ u``: the tangent of ``M(x*, θ) u`` along ``dots`` (one
         ``torch.func.jvp``; a ``None`` tangent is zero)."""
         of, primals, slots = self._of_operands(
-            lambda x, th: self.operator(x, th).matvec(u), operands)
+            lambda x, th: self.matrix(x, th).matvec(u), operands)
         return torch.func.jvp(of, tuple(primals),
                               _tangents(operands, dots, slots))[1]
 
@@ -522,27 +686,45 @@ class _System:
         ``torch.func.vjp``; ``None`` for a tensor that is not
         floating-point)."""
         of, primals, slots = self._of_operands(
-            lambda x, th: self.operator(x, th).matvec(u), operands)
+            lambda x, th: self.matrix(x, th).matvec(u), operands)
         _, vjp_fun = torch.func.vjp(of, *primals)
         grads = [None] * len(operands)
         for i, g in zip(slots, vjp_fun(canonical(w))):
             grads[i] = -g
         return grads
 
-    def polynomial_jvp(self, operands, rhs, dots, rhs_dots):
-        """The tangent of the fixed-budget polynomial ``P(M(x*, θ)) rhs``
-        of an approximate mode, differentiated as it stands (as the JAX
-        package differentiates its ``approx_inverse_apply``)."""
+    def _polynomial(self, operands, rhs):
+        """The fixed-budget polynomial ``P(M(x*, θ)) rhs`` of an
+        approximate mode as a function of the floating-point tensors among
+        ``operands`` and ``rhs``: ``(that function, those tensors, their
+        slots)``."""
         kw = {k: self.kw[k] for k in ("ridge", "precond", "backward",
                                       "backward_iters", "tol")}
-        of, primals, slots = self._of_operands(
+        return self._of_operands(
             lambda x, th, *r: ls.approx_inverse_apply(
-                self.operator(x, th), self.rhs_tree(r),
+                self.matrix(x, th), self.rhs_tree(r),
                 batch_ndim=self.batch_ndim, **kw),
             list(operands) + list(rhs))
+
+    def polynomial_jvp(self, operands, rhs, dots, rhs_dots):
+        """The tangent of an approximate mode's polynomial, differentiated
+        as it stands (as the JAX package differentiates its
+        ``approx_inverse_apply``)."""
+        of, primals, slots = self._polynomial(operands, rhs)
         return torch.func.jvp(of, tuple(primals), _tangents(
             list(operands) + list(rhs), list(dots) + list(rhs_dots),
             slots))[1]
+
+    def polynomial_vjp(self, operands, rhs, w) -> list:
+        """The cotangents of the polynomial's operand and right-hand-side
+        tensors for ``w``, in reverse mode as it stands (``None`` for a
+        tensor that is not floating-point)."""
+        of, primals, slots = self._polynomial(operands, rhs)
+        _, vjp_fun = torch.func.vjp(of, *primals)
+        grads = [None] * (len(operands) + len(rhs))
+        for i, g in zip(slots, vjp_fun(canonical(w))):
+            grads[i] = g
+        return grads
 
 
 def _tangents(tensors, dots, slots) -> tuple:
@@ -630,8 +812,9 @@ class _BatchedSystem(ops.LinearOperator):
 
 _SHARDED_SECOND_ORDER = (
     "a derivative of a mesh-placed implicit solve (a second derivative "
-    "through a sharded implicit_diff, root_vjp or root_jvp) is not "
-    "supported by the PyTorch port")
+    "through a sharded implicit_diff, root_vjp or root_jvp) takes plain "
+    "tensors, every rank's global values: torch.func does not trace "
+    "DTensors")
 
 
 class _SystemSolve(torch.autograd.Function):
@@ -647,16 +830,16 @@ class _SystemSolve(torch.autograd.Function):
     Each inner solve is a ``_SystemSolve`` again (``_System.again``), with
     the system's routing: the registry solver, or under an approximate
     ``backward`` the same polynomial.  A ``"direct"`` system (``_System``)
-    has no ``backward`` and its approximate ``jvp`` differentiates the
-    polynomial itself.  The solve's iterations are never recorded — under
-    ``torch.func.grad``, which keeps the backward's graph, they would hold
-    every iteration's intermediates.  The ``vmap`` rule runs a whole batch
-    of systems as ONE registry solve (``_BatchedSystem``)."""
-
-    @staticmethod
-    def _check(system):
-        if system.sharding is not None:
-            raise NotImplementedError(_SHARDED_SECOND_ORDER)
+    is differentiated as its routine is in the JAX package: the rules
+    above for ``lu`` and ``pallas_cg`` (whose JAX op solves the flipped
+    system in its reverse rule too), the polynomial itself for the
+    approximate modes, and no ``backward`` for the loops.  A mesh-placed
+    system's rules take plain tensors: their products run on the global
+    values (``_System.matrix``), their solves on the mesh.  The solve's
+    iterations are never recorded — under ``torch.func.grad``, which keeps
+    the backward's graph, they would hold every iteration's
+    intermediates.  The ``vmap`` rule runs a whole batch of systems as ONE
+    registry solve (``_BatchedSystem``, or a folded mesh-placed system)."""
 
     @staticmethod
     def forward(system, *tensors):
@@ -674,32 +857,39 @@ class _SystemSolve(torch.autograd.Function):
         n_op, n_u = len(system.operands.tensors), system.flat.counts[2]
         ctx.mark_non_differentiable(*output[n_u:])
         operands, rhs = inputs[1:1 + n_op], inputs[1 + n_op:]
-        ctx.save_for_backward(*operands, *output[:n_u])
+        ctx.save_for_backward(*operands, *rhs, *output[:n_u])
         ctx.save_for_forward(*operands, *rhs, *output[:n_u])
 
     @staticmethod
     def backward(ctx, *grads):
         system = ctx.system
-        _SystemSolve._check(system)
-        if system.derivative == "direct":
-            raise RuntimeError(
-                f"reverse mode through the linear solve of {system.source} "
-                "is not available (the JAX package's solve loop is not "
-                "reverse-differentiable either); forward mode is, and a "
-                "mode='auto' wrapper serves both")
         n_op, n_u = len(system.operands.tensors), system.flat.counts[2]
         saved = ctx.saved_tensors
-        operands, u = saved[:n_op], system.rhs_tree(saved[n_op:])
-        w = system.again(operands, system.rhs_tree(grads[:n_u]),
-                         not system.transpose)
+        _check_plain(saved)
+        operands, rhs = saved[:n_op], saved[n_op:n_op + n_u]
+        u = system.rhs_tree(saved[n_op + n_u:])
+        u_bar = system.rhs_tree(grads[:n_u])
+        if system.derivative == "direct":
+            routine = system.routine(operands, u_bar)
+            if routine not in _REVERSIBLE:
+                raise RuntimeError(
+                    f"reverse mode through the linear solve of "
+                    f"{system.source} is not available: its routine "
+                    f"{routine!r} is a loop with no reverse derivative, as "
+                    "in the JAX package (lu, pallas_cg and the approximate "
+                    "backward modes have one); forward mode is, and a "
+                    "mode='auto' wrapper serves both")
+            if system.kw["backward"] != "exact":
+                return (None, *system.polynomial_vjp(operands, rhs, u_bar))
+        w = system.again(operands, u_bar, not system.transpose)
         return (None, *system.product_vjp(operands, u, w),
                 *tree_flatten(w)[0])
 
     @staticmethod
     def jvp(ctx, _system_dot, *dots):
         system = ctx.system
-        _SystemSolve._check(system)
         n_op, n_u = len(system.operands.tensors), system.flat.counts[2]
+        _check_plain(ctx.saved_tensors)
         saved = [_primal(t) for t in ctx.saved_tensors]
         dots = [_primal(d) for d in dots]
         operands, rhs = saved[:n_op], saved[n_op:n_op + n_u]
@@ -722,10 +912,10 @@ class _SystemSolve(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, system, *tensors):
-        if system.sharding is not None:
-            # the sharded solvers batch themselves: one solve where the
-            # operator is shared, one per slice otherwise
-            # (``distributed.sharded_operators._SolveJob``)
+        if system.sharding is not None and system.batch_ndim != 1:
+            # no instance axis to fold into: the sharded solvers batch
+            # themselves, one solve where the operator is shared, one per
+            # slice otherwise (``distributed.sharded_operators._SolveJob``)
             out = torch.func.vmap(
                 lambda *ts: _SystemSolve.forward(system, *ts),
                 in_dims=in_dims[1:], randomness=info.randomness)(*tensors)
@@ -765,10 +955,12 @@ def _of_diff_leaves(F: Callable, x_star, theta_args: tuple):
 
 
 def _theta_vjp(F: Callable, x_star, theta_args: tuple, u,
-               sharding=None) -> tuple:
+               sharding=None, in_rule: bool = False) -> tuple:
     """``uᵀ ∂₂F`` per θ argument: one ``torch.func.vjp`` in θ's
     floating-point tensor leaves; any other leaf gets ``None``.  With
-    ``sharding``, on the local shards (``SolveSharding.theta_vjp``)."""
+    ``sharding``, on the local shards (``SolveSharding.theta_vjp``),
+    unless it is differentiated on plain tensors (``_placement``)."""
+    sharding = _placement(sharding, (x_star, theta_args, u), in_rule)
     if sharding is not None:
         return tuple(sharding.theta_vjp(
             lambda x, th, v: _theta_vjp(F, x, th, v), x_star,
@@ -785,7 +977,9 @@ def _theta_vjp(F: Callable, x_star, theta_args: tuple, u,
 def _theta_jvp(F: Callable, x_star, theta_args: tuple, tangents: tuple,
                sharding=None):
     """``∂₂F θ̇``: one ``torch.func.jvp`` in θ; with ``sharding``, on the
-    local shards (``SolveSharding.theta_jvp``)."""
+    local shards (``SolveSharding.theta_jvp``), unless it is
+    differentiated on plain tensors (``_placement``)."""
+    sharding = _placement(sharding, (x_star, theta_args, tangents), False)
     if sharding is not None:
         return sharding.theta_jvp(
             lambda x, th, t: _theta_jvp(F, x, th, t), x_star,
@@ -984,12 +1178,14 @@ class _Call:
         The JAX package's custom rule serves only the innermost level; at
         the outer ones JAX differentiates the wrapped solver itself.  The
         port gives x*'s exact derivative there: implicitly (the spec's
-        routed solver, whatever the approximate ``backward``), equal to
-        the solver's own to the tolerances, or for a stochastic solver by
-        differentiating its loop (``unrolled_jvp`` / ``unrolled_vjp``).
-        Such a rule is open to every mode in forward mode (``jacfwd(grad)``
-        under ``mode="vjp"``), and in reverse mode to ``mode="auto"``
-        through no loop of the solver runtime (``loop``)."""
+        routed solver, whatever the approximate ``backward`` or ``ridge``),
+        equal to the solver's own to the tolerances, or for a stochastic
+        solver by differentiating its loop (``unrolled_jvp`` /
+        ``unrolled_vjp``).  Such a rule is open to every mode, in reverse
+        mode through no loop of the solver runtime (``loop``); whether the
+        cell has a value is then up to the inner level's solve, whose
+        routine a single-mode wrapper differentiates as it stands
+        (``_SystemSolve``)."""
         level = torch._C._functorch.maybe_current_level()
         if level is not None and self.innermost is not None:
             return level < self.innermost
@@ -1107,8 +1303,10 @@ class _ImplicitFunction(torch.autograd.Function):
 
     @staticmethod
     def _system_kw(call: _Call, outer: bool) -> dict:
-        """``_solve_system``'s routing for a rule of ``call``: the spec's,
-        exact at an outer level (``_Call.outer``); the solve is
+        """``_solve_system``'s routing for a rule of ``call``: the spec's;
+        at an outer level (``_Call.outer``) x*'s exact derivative, so no
+        approximate ``backward`` and no ``ridge`` (the JAX package
+        differentiates the wrapped solver there).  The solve is
         differentiated in turn as ``custom_linear_solve`` under
         ``mode="auto"``, as the JAX package's solve routine otherwise."""
         spec = call.spec
@@ -1120,22 +1318,29 @@ class _ImplicitFunction(torch.autograd.Function):
                     derivative=("linear_solve" if call.mode == "auto"
                                 else "direct"),
                     source=f"a solver wrapped with mode={call.mode!r}",
-                    **spec.routing_kwargs())
+                    **dict(spec.routing_kwargs(),
+                           ridge=0.0 if outer else spec.ridge))
 
     @staticmethod
-    def _check_outer(call: _Call):
-        if call.sharding is not None:
-            raise NotImplementedError(_SHARDED_SECOND_ORDER)
+    def _check_transposable(call: _Call, F, x_star, theta, ct):
+        """A ``mode="jvp"`` wrapper's reverse mode transposes its tangent
+        solve, as the JAX package does where the routine allows it
+        (``_TRANSPOSABLE``)."""
+        spec = call.spec
+        routine = _routine(spec.solve, spec.backward,
+                           lambda: _implicit_system_operator(
+                               F, x_star, theta, spec.solve, call.sharding,
+                               spec.system_operator), ct, spec.precond)
+        if routine not in _TRANSPOSABLE:
+            raise RuntimeError(
+                "this solver was wrapped with mode='jvp' (forward mode "
+                f"only); reverse mode is not available with its routine "
+                f"{routine!r}, whose tangent solve the JAX package cannot "
+                "transpose either (lu, one_step and jacobian_free it can) "
+                "— wrap with mode='auto' or 'vjp'")
 
     @staticmethod
     def _check_outer_reverse(call: _Call):
-        _ImplicitFunction._check_outer(call)
-        if call.mode != "auto":
-            raise RuntimeError(
-                f"this solver was wrapped with mode={call.mode!r}; reverse "
-                "mode through a derivative of it (grad of grad, grad of "
-                "jvp) is not available, as in the JAX package — wrap with "
-                "mode='auto'")
         if call.loop is not None:
             raise RuntimeError(
                 f"reverse mode through a derivative of {call.loop}.run() "
@@ -1147,12 +1352,9 @@ class _ImplicitFunction(torch.autograd.Function):
     def backward(ctx, *grads):
         call = ctx.call
         outer = call.outer()
-        if call.mode == "jvp" and not outer:
-            raise RuntimeError("this solver was wrapped with mode='jvp' "
-                               "(forward mode only); reverse mode is not "
-                               "available — wrap with mode='auto' or 'vjp'")
         leaves, x_star, init = _ImplicitFunction._split(ctx)
         if outer:
+            _check_plain(ctx.saved_tensors)
             _ImplicitFunction._check_outer_reverse(call)
             if call.unrolled:
                 return (None,) * (1 + call.n_init) + call.unrolled_vjp(
@@ -1165,10 +1367,14 @@ class _ImplicitFunction(torch.autograd.Function):
 
         def one(theta, xs, ct):
             x_star, F = call.x.trees(xs)[0], call.residual()
-            u, _ = _solve_system(F, x_star, theta, call.x.trees(ct)[0],
-                                 transpose=True, direction="vjp", **kw)
+            ct = call.x.trees(ct)[0]
+            if call.mode == "jvp" and not outer:
+                _ImplicitFunction._check_transposable(call, F, x_star, theta,
+                                                      ct)
+            u, _ = _solve_system(F, x_star, theta, ct, transpose=True,
+                                 direction="vjp", **kw)
             return tuple(g for g in _theta_vjp(F, x_star, theta, u,
-                                               call.sharding)
+                                               call.sharding, in_rule=True)
                          if g is not None)
 
         # integer θ tensors get None, as _theta_vjp gives any such leaf
@@ -1192,17 +1398,19 @@ class _ImplicitFunction(torch.autograd.Function):
         kw = _ImplicitFunction._system_kw(call, outer)
         with _forward_mode():
             if outer:
-                _ImplicitFunction._check_outer(call)
+                _check_plain(ctx.saved_tensors)
             if outer and call.unrolled:
                 return tuple(call.unrolled_jvp(init, leaves, theta_dot)) + \
                     (None,) * len(call.aux.tensors)
 
             def one(theta, xs, theta_dot):
                 x_star = call.x.trees(xs)[0]
-                if call.sharding is None:
+                sharding = _placement(call.sharding, (x_star, theta),
+                                      in_rule=True)
+                if sharding is None:
                     Bv = _leaves_jvp(F, x_star, theta, theta_dot)
                 else:
-                    Bv = call.sharding.theta_jvp(
+                    Bv = sharding.theta_jvp(
                         lambda x, th, t: _leaves_jvp(F, x, th, t), x_star,
                         theta, theta_dot)
                 dx, _ = _solve_system(F, x_star, theta, Bv, transpose=False,

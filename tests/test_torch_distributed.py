@@ -16,6 +16,9 @@ the test process, from the same numpy inputs (float64):
   * a sharded ridge hypergradient (DTensors, a ``SolveSharding`` with the
     batch on the mesh) and a replicated-λ one (its per-shard products
     summed over the mesh) against JAX's single-device gradients, 1e-8;
+  * the sharded ridge's Hessian (``torch.func.hessian`` and its ``vmap``
+    over θ, plain tensors: the rules' products on global values, their
+    solves on the ranks) and the replicated λ's, against JAX's, 1e-8;
   * ``pipeline_forward`` at S = world size against the sequential forward.
 
 Spec construction needs no ranks: for every config of
@@ -25,6 +28,7 @@ params_specs`` leaf for leaf (the reference's ``TestSpecConstruction``).
 The mesh builders start a single-rank group only where no group runs and
 ``WORLD_SIZE`` is unset.
 """
+import functools
 import os
 import subprocess
 import sys
@@ -147,17 +151,17 @@ CHILD = textwrap.dedent("""
                            theta_specs=(P(), P("data", None, None),
                                         P("data", None)))
     lam = D["lam"].clone().requires_grad_()
-    dec = implicit_diff(ImplicitDiffSpec(optimality_fun=F_lam, solve="cg",
-                                         tol=1e-12, sharding=sh_lam))(
+    dec_lam = implicit_diff(ImplicitDiffSpec(
+        optimality_fun=F_lam, solve="cg", tol=1e-12, sharding=sh_lam))(
         lambda init, lam, X, y: local_solver(
             lam * torch.ones(X.shape[0], dtype=X.dtype), X, y))
-    (g,) = torch.autograd.grad((dec(None, lam, D["X"], D["y"]) ** 2).sum(),
-                               lam)
+    (g,) = torch.autograd.grad((dec_lam(None, lam, D["X"], D["y"]) ** 2)
+                               .sum(), lam)
     res["lam_grad"] = g
 
     # 4b. torch.func.vmap of a sharded solve (a batch of right-hand sides
     #     against one operator: one folded solve) and of a sharded
-    #     gradient (over the cotangent seed, and over θ: one per slice)
+    #     gradient (over the cotangent seed, and over θ: one folded solve)
     op = ShardedOperator(ops.DenseOperator(D["A"], positive_definite=True),
                          mesh, P("data", None))
     res["vmap_x"] = torch.func.vmap(lambda bi: ls.solve(
@@ -168,6 +172,14 @@ CHILD = textwrap.dedent("""
     res["vmap_seed_grad"] = torch.func.vmap(grad, in_dims=(None, 0))(
         D["theta"], D["seeds"])
     res["vmap_theta_grad"] = torch.func.vmap(grad)(D["thetas"], D["seeds"])
+
+    # 4c. second derivatives through the sharded solve (plain tensors)
+    hess = torch.func.hessian(lambda t: (dec(None, t, D["X"], D["y"]) ** 2)
+                              .sum())
+    res["ridge_hessian"] = hess(D["theta"])
+    res["vmap_ridge_hessian"] = torch.func.vmap(hess)(D["thetas"])
+    res["lam_hessian"] = torch.func.hessian(lambda lam: (dec_lam(
+        None, lam, D["X"], D["y"]) ** 2).sum())(D["lam"])
 
     # 4. the pipeline at S = world
     stages = make_solve_mesh(axis="stage", device="cpu")
@@ -315,6 +327,42 @@ def test_vmap_of_sharded_solves_matches_jax_vmap(ranks):
         want = jax.vmap(grad, in_axes=axes)(jnp.asarray(theta),
                                             jnp.asarray(D["seeds"]))
         np.testing.assert_allclose(got[key], np.asarray(want), atol=1e-8)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ridge_hessians():
+    """``jax.vmap(jax.hessian)`` of the ridge over ``thetas`` (whose first
+    row is ``theta``) and the replicated λ's Hessian, on one device."""
+    D = _inputs()
+
+    def F(x, theta, X, y):
+        r = jnp.einsum("bmd,bd->bm", X, x) - y
+        return jnp.einsum("bmd,bm->bd", X, r) + theta[:, None] * x
+
+    def solver(init, theta, X, y):
+        A = jnp.einsum("bmd,bme->bde", X, X) \
+            + theta[:, None, None] * jnp.eye(X.shape[-1])
+        return jnp.linalg.solve(
+            A, jnp.einsum("bmd,bm->bd", X, y)[..., None])[..., 0]
+
+    dec = jimplicit(JSpec(optimality_fun=F, solve="cg", tol=1e-12))(solver)
+    X, y = jnp.asarray(D["X"]), jnp.asarray(D["y"])
+    hess = jax.jit(jax.vmap(jax.hessian(lambda t: jnp.sum(
+        dec(None, t, X, y) ** 2))))(jnp.asarray(D["thetas"]))
+    lam = jax.hessian(lambda lam: jnp.sum(dec(None, lam * jnp.ones(B), X,
+                                              y) ** 2))(jnp.asarray(D["lam"]))
+    return np.asarray(hess), np.asarray(lam)
+
+
+def test_sharded_hessian_matches_single_device_jax(ranks):
+    """``hessian`` of the sharded ridge, its ``vmap`` over θ and the
+    replicated λ's on the ranks against ``jax.hessian`` on one device."""
+    _, D, got = ranks
+    hess, lam = _jax_ridge_hessians()
+    assert np.array_equal(D["thetas"][0], D["theta"])
+    np.testing.assert_allclose(got["ridge_hessian"], hess[0], atol=1e-8)
+    np.testing.assert_allclose(got["vmap_ridge_hessian"], hess, atol=1e-8)
+    np.testing.assert_allclose(got["lam_hessian"], lam, atol=1e-8)
 
 
 def test_pipeline_forward_matches_the_sequential_forward(ranks):

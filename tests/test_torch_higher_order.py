@@ -7,12 +7,15 @@ with x' = −A⁻¹x* and x'' = −2A⁻¹x' (A = XᵀX + θI).  The four second
 combinations ``grad(grad)``, ``jacfwd(grad)``, ``grad(jvp)`` and
 ``jacfwd(jacfwd)`` go through both packages' ``implicit_diff`` in each
 ``mode``: where JAX gives a value the port gives it to 1e-8, where JAX
-raises the port raises.  Then the approximate backward modes on a
-contractive fixed point, θ a vector (``hessian`` of a nonlinear F), the
-batch (``vmap`` of ``hessian`` as one solve per level), ``root_vjp`` /
-``root_jvp`` differentiated directly, plain ``torch.autograd`` double
-backward, and the callers: the DEQ layer, ``make_implicit_inner``, the
-solver runtime and the stochastic solvers.
+raises the port raises.  A single-mode wrapper differentiates its routed
+routine as it stands, so its cells depend on the routine (``lu``,
+``pallas_cg`` and the approximate modes have a reverse derivative, the
+loops none); ``ridge`` damps the inner solve only.  Then the approximate
+backward modes on a contractive fixed point, θ a vector (``hessian`` of a
+nonlinear F), the batch (``vmap`` of ``hessian`` as one solve per level),
+``root_vjp`` / ``root_jvp`` differentiated directly, plain
+``torch.autograd`` double backward, and the callers: the DEQ layer,
+``make_implicit_inner``, the solver runtime and the stochastic solvers.
 """
 import functools
 
@@ -128,6 +131,20 @@ def _check_cell(make, mode, kw, combo, theta=THETA):
     return got
 
 
+def _closed_second_ridge(theta, ridge):
+    """The cells' value with a damped inner solve: JAX's outer level
+    differentiates the wrapped solver (exact x*), its inner level solves
+    with −∂₁F + ridge·I = H − ridge·I (H = XᵀX + θI), whose tangent is H's,
+    as ``custom_linear_solve`` differentiates it."""
+    A = XN.T @ XN + theta * np.eye(D)
+    Ar = A - ridge * np.eye(D)
+    x = np.linalg.solve(A, XN.T @ YN)
+    x1 = -np.linalg.solve(A, x)
+    # dL/dθ = −2x·(A_r⁻¹ x): differentiate it in θ once more
+    u = np.linalg.solve(Ar, x)
+    return -2 * (x1 @ u + x @ np.linalg.solve(Ar, x1 - u))
+
+
 # ---------------------------------------------------------------------------
 # the mode × combination matrix
 # ---------------------------------------------------------------------------
@@ -151,6 +168,58 @@ def test_auto_mode_gives_every_combination(solve):
     for combo in COMBOS:
         got = _check_cell(_ridge_loss, "auto", {"solve": solve}, combo)
         np.testing.assert_allclose(got, _closed_second(THETA), atol=ATOL)
+
+
+# the cells of a ridge of 1e-2 in JAX: cg, lu and gmres solve A + ridge·I
+# in the inner level; normal_cg its normal equations' damped form
+RIDGE_CELL = {"cg": 0.0025758726966537, "lu": 0.0025758726966537,
+              "gmres": 0.0025758726966537, "normal_cg": 0.0025735263968258}
+
+
+@pytest.mark.parametrize("solve", sorted(RIDGE_CELL))
+def test_ridge_damps_the_inner_solve_only(solve):
+    """Regression: x*'s outer derivative once took the spec's ridge too
+    and every cell differed from JAX's by 4e-4 relative, silently.  The
+    outer level is exact now; the inner solve keeps the ridge."""
+    kw = {"solve": solve, "ridge": 1e-2}
+    got = [_check_cell(_ridge_loss, "auto", kw, c) for c in COMBOS]
+    np.testing.assert_allclose(got, RIDGE_CELL[solve], atol=1e-15,
+                               rtol=1e-12)
+    if solve != "normal_cg":
+        np.testing.assert_allclose(got, _closed_second_ridge(THETA, 1e-2),
+                                   rtol=1e-10)
+
+
+def _ridge_tree_loss(lib, mode="auto", **kw):
+    """``_ridge_loss`` with x* a pytree ``{"a": x[:2], "b": x[2:]}``."""
+    m = jnp if lib == "jax" else torch
+    X, y = (jnp.asarray(XN), jnp.asarray(YN)) if lib == "jax" else \
+        (_t(XN), _t(YN))
+    eye = jnp.eye(D) if lib == "jax" else torch.eye(D, dtype=F64)
+    cat = jnp.concatenate if lib == "jax" else torch.cat
+
+    def F(x, t):
+        v = cat([x["a"], x["b"]])
+        r = X.T @ (X @ v - y) + t * v
+        return {"a": r[:2], "b": r[2:]}
+
+    def solver(init, t):
+        v = m.linalg.solve(X.T @ X + t * eye, X.T @ y)
+        return {"a": v[:2], "b": v[2:]}
+
+    diff = jdiff if lib == "jax" else tdiff
+    wrapped = diff.implicit_diff(optimality_fun=F, tol=SOLVE_TOL, mode=mode,
+                                 **kw)(solver)
+    return lambda t: sum(m.sum(v ** 2) for v in wrapped(None, t).values())
+
+
+def test_ridge_through_a_pytree_x_matches_jax():
+    """The same repair with x* a pytree and a ridge of 1e-3 (the packages
+    once differed by 3.8e-7 at a scale of 3.9e-2)."""
+    kw = {"solve": "cg", "ridge": 1e-3}
+    got = [_check_cell(_ridge_tree_loss, "auto", kw, c) for c in COMBOS]
+    np.testing.assert_allclose(got, _closed_second_ridge(THETA, 1e-3),
+                               rtol=1e-10)
 
 
 @pytest.mark.parametrize("mode", ["auto", "jvp"])
@@ -212,6 +281,49 @@ def test_approximate_backward_matches_jax(backward):
     if backward != "jacobian_free":
         assert abs(auto[0] - exact) > 1e-6 and abs(vjp - auto[0]) > 1e-8
     np.testing.assert_allclose(jvp, vjp, atol=ATOL)
+
+
+# A single-mode wrapper differentiates its routed routine as it stands, as
+# the JAX package's custom_vjp / non-transposable custom_jvp do: the cases
+# where the routine gives JAX more cells than the mode alone
+ROUTINE_CASES = {
+    **{f"ridge-{s}": (_ridge_loss, {"solve": s})
+       for s in ("lu", "pallas_cg")},
+    **{f"{b}-{s}": (_fixed_point_loss,
+                    {"solve": s, "backward": b, "backward_iters": 3})
+       for b in ("one_step", "neumann_k", "jacobian_free")
+       for s in ("cg", "lu", "pallas_cg")}}
+# where the port's pallas_cg op, which has a forward rule, gives a value
+# (the closed form) and JAX's Pallas op, reverse-only, raises
+PALLAS_FORWARD = {"vjp": "jacfwd(grad)", "jvp": "jacfwd(jacfwd)"}
+
+
+@pytest.mark.parametrize("mode", ["vjp", "jvp"])
+@pytest.mark.parametrize("case", sorted(ROUTINE_CASES))
+def test_single_mode_cells_follow_the_routed_routine(case, mode):
+    """Each cell of a ``mode="vjp"`` / ``"jvp"`` wrapper as JAX's: its
+    value to 1e-8 where JAX gives one, a raise naming the mode where JAX
+    raises; ``pallas_cg``'s forward cells are the closed form beside
+    JAX's raise."""
+    make, kw = ROUTINE_CASES[case]
+    got = {}
+    for combo in COMBOS:
+        if case == "ridge-pallas_cg" and combo == PALLAS_FORWARD[mode]:
+            assert _jax_cell(make, mode, tuple(sorted(kw.items())),
+                             combo) is None
+            got[combo] = float(_combos("torch", make("torch", mode, **kw))[
+                combo](torch.tensor(THETA, dtype=F64)))
+            np.testing.assert_allclose(got[combo], _closed_second(THETA),
+                                       atol=ATOL)
+            continue
+        got[combo] = _check_cell(make, mode, kw, combo)
+    assert ALLOWED[mode] <= {c for c, v in got.items() if v is not None}
+    if make is _ridge_loss:
+        for v in got.values():
+            if v is not None:
+                np.testing.assert_allclose(v, _closed_second(THETA),
+                                           atol=ATOL)
+
 
 
 # ---------------------------------------------------------------------------
@@ -343,8 +455,10 @@ def test_vmap_of_a_nonsymmetric_second_derivative_matches_jax(combo):
 V = _rng.standard_normal(D)
 
 
-def _root_product(lib, which):
-    """θ ↦ a scalar of ``root_vjp`` / ``root_jvp`` at a fixed x*."""
+def _root_product(lib, which, **kw):
+    """θ ↦ a scalar of ``root_vjp`` / ``root_jvp`` at a fixed x*, routed
+    by ``kw`` (``solve="cg"`` by default)."""
+    kw = dict({"solve": "cg", "tol": SOLVE_TOL}, **kw)
     A = XN.T @ XN + THETA * np.eye(D)
     xs = np.linalg.solve(A, XN.T @ YN)
     if lib == "jax":
@@ -359,10 +473,8 @@ def _root_product(lib, which):
         return X.T @ (X @ z - y) + t * z
 
     if which == "root_vjp":
-        return lambda t: diff.root_vjp(F, x, (t,), v, solve="cg",
-                                       tol=SOLVE_TOL)[0].sum()
-    return lambda t: (diff.root_jvp(F, x, (t,), (one,), solve="cg",
-                                    tol=SOLVE_TOL) * v).sum()
+        return lambda t: diff.root_vjp(F, x, (t,), v, **kw)[0].sum()
+    return lambda t: (diff.root_jvp(F, x, (t,), (one,), **kw) * v).sum()
 
 
 @pytest.mark.parametrize("transform", ["grad", "jvp"])
@@ -383,6 +495,38 @@ def test_root_products_differentiate_as_in_jax(which, transform):
         jnp.asarray(THETA))
     got = torch.func.jvp(ft, (theta,), (torch.ones_like(theta),))[1]
     np.testing.assert_allclose(float(got), float(want), atol=ATOL)
+
+
+ROOT_ROUTES = {"lu": {"solve": "lu"}, "pallas_cg": {"solve": "pallas_cg"},
+               "one_step": {"backward": "one_step"}}
+# JAX's torch.func.grad of either product: vᵀ∂(A⁻¹∂₂F)/∂θ, the same for
+# both since A is symmetric
+ROOT_GRAD = {"lu": -0.0019557570902178, "pallas_cg": -0.0019557570902178,
+             "one_step": 0.0736569500709236}
+
+
+@pytest.mark.parametrize("route", sorted(ROOT_ROUTES))
+@pytest.mark.parametrize("which", ["root_vjp", "root_jvp"])
+def test_root_products_reverse_where_the_routine_allows(which, route):
+    """``grad`` of a product routed to ``lu``, ``pallas_cg`` or
+    ``one_step`` differentiates the routine in reverse as JAX does; with
+    ``pallas_cg`` the port's forward mode gives a value too, where JAX's
+    reverse-only Pallas op raises."""
+    kw = ROOT_ROUTES[route]
+    fj, ft = _root_product("jax", which, **kw), _root_product("torch", which,
+                                                             **kw)
+    theta = torch.tensor(THETA, dtype=F64)
+    want = float(jax.jit(jax.grad(fj))(jnp.asarray(THETA)))
+    np.testing.assert_allclose(want, ROOT_GRAD[route], atol=1e-15,
+                               rtol=1e-12)
+    got = float(torch.func.grad(ft)(theta))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
+    fwd = float(torch.func.jvp(ft, (theta,), (torch.ones_like(theta),))[1])
+    np.testing.assert_allclose(fwd, want, atol=ATOL, rtol=ATOL)
+    if route == "pallas_cg":
+        with pytest.raises(Exception):
+            jax.jit(lambda t: jax.jvp(fj, (t,), (jnp.ones_like(t),))[1])(
+                jnp.asarray(THETA))
 
 
 @pytest.mark.parametrize("backward", ["exact", "one_step"])

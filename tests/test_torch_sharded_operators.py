@@ -19,8 +19,12 @@ same numpy inputs, float64 against float64:
     ``root_vjp`` / ``root_jvp(sharding=...)`` and
     ``GradientDescent(sharding=...)``, each against JAX within 1e-8; a spy
     that counts one sharded backward solve per gradient; ``vmap`` of a
-    sharded solve raises ``NotImplementedError`` (a documented difference:
-    JAX batches it) while a loop over the batch equals JAX's vmap;
+    sharded solve and of a sharded gradient equals JAX's vmap (one folded
+    solve where the operator is shared);
+  * second derivatives through the sharded solve: the four combinations
+    in each ``mode`` against JAX's one-device mesh (a value within 1e-8,
+    or a raise where JAX raises), and ``vmap`` of ``hessian`` as one
+    folded sharded solve per level;
   * the sharded rows of ``autotune.measure_solver`` and
     ``launch.mesh.auto_mesh_size``;
   * the paper's §4.4 molecular-dynamics sensitivity in the port
@@ -709,7 +713,7 @@ def test_grad_executes_one_sharded_solve(npr, mesh, jmesh):
 def test_vmap_of_a_sharded_gradient_raises(npr, mesh, jmesh):
     """Once a documented raise, now parity: ``vmap`` of a gradient whose
     backward solve is sharded, over the cotangent seed (the operator
-    shared: one folded solve) and over θ (one solve per slice), equals
+    shared) and over θ (a batch of operators), each one folded solve, equals
     ``jax.vmap``'s."""
     X, y, theta = _ridge_data(npr)
     spec, jspec = _specs(mesh, jmesh)
@@ -727,6 +731,100 @@ def test_vmap_of_a_sharded_gradient_raises(npr, mesh, jmesh):
         want = jax.vmap(jgrad, in_axes=in_dims)(*map(jnp.asarray, args))
         np.testing.assert_allclose(_np(got), np.asarray(want),
                                    atol=GRAD_TOL)
+
+
+# the four second-order combinations, each the Hessian of Σx*² in θ ∈ R^B
+def _second(lib, f):
+    if lib == "jax":
+        g, eye = jax.grad(f), jnp.eye(B)
+        return {"grad(grad)": jax.jacrev(g), "jacfwd(grad)": jax.jacfwd(g),
+                "grad(jvp)": lambda t: jax.vmap(lambda e: jax.grad(
+                    lambda s: jax.jvp(f, (s,), (e,))[1])(t))(eye),
+                "jacfwd(jacfwd)": jax.jacfwd(jax.jacfwd(f))}
+    g, eye = torch.func.grad(f), torch.eye(B, dtype=torch.float64)
+    return {"grad(grad)": torch.func.jacrev(g),
+            "jacfwd(grad)": torch.func.jacfwd(g),
+            "grad(jvp)": lambda t: torch.func.vmap(lambda e: torch.func.grad(
+                lambda s: torch.func.jvp(f, (s,), (e,))[1])(t))(eye),
+            "jacfwd(jacfwd)": torch.func.jacfwd(torch.func.jacfwd(f))}
+
+
+SECOND = ("grad(grad)", "jacfwd(grad)", "grad(jvp)", "jacfwd(jacfwd)")
+# the cells of each mode (JAX raises in the others); the Hessian's diagonal
+# starts so on JAX's one-device mesh
+SECOND_ALLOWED = {"auto": set(SECOND), "vjp": {"jacfwd(grad)"},
+                  "jvp": {"jacfwd(jacfwd)"}}
+HESSIAN_DIAG = (0.0360587, 0.1226335, 0.0878542)
+
+
+@pytest.mark.parametrize("mode", ["auto", "vjp", "jvp"])
+def test_second_derivatives_on_the_mesh_match_jax(npr, mesh, jmesh, mode):
+    """Each cell of a sharded ``implicit_diff`` as on JAX's one-device
+    mesh: the Hessian within 1e-8 where JAX gives it, a raise naming the
+    mode where JAX raises (``sharded_cg`` is a loop)."""
+    X, y, theta = _ridge_data(npr)
+    spec, jspec = _specs(mesh, jmesh)
+    dec = implicit_diff(spec, mode=mode)(T_SOLVER)
+    jdec = jimplicit(jspec, mode=mode)(J_SOLVER)
+    cells_t = _second("torch", lambda t: (dec(None, t, _t(X), _t(y)) ** 2)
+                      .sum())
+    cells_j = _second("jax", lambda t: jnp.sum(
+        jdec(None, t, jnp.asarray(X), jnp.asarray(y)) ** 2))
+    given = set()
+    for combo in SECOND:
+        try:
+            want = np.asarray(jax.jit(cells_j[combo])(jnp.asarray(theta)))
+        except Exception:                               # noqa: BLE001
+            with pytest.raises(RuntimeError, match=f"mode={mode!r}"):
+                cells_t[combo](_t(theta))
+            continue
+        given.add(combo)
+        np.testing.assert_allclose(np.diag(want)[:3], HESSIAN_DIAG,
+                                   atol=1e-7)
+        np.testing.assert_allclose(_np(cells_t[combo](_t(theta))), want,
+                                   atol=GRAD_TOL)
+    assert given == SECOND_ALLOWED[mode]
+
+
+def test_vmap_of_a_sharded_hessian_is_one_folded_solve_per_level(
+        npr, mesh, jmesh):
+    """``vmap(hessian)`` over three θ runs three sharded solves, as one
+    ``hessian`` does: each level's solve holds the batch's instances side
+    by side.  Its values are ``jax.vmap(jax.hessian)``'s on the mesh, the
+    loop's bit for bit, and the unsharded port's."""
+    X, y, theta = _ridge_data(npr)
+    spec, jspec = _specs(mesh, jmesh)
+    thetas = theta[None] * np.array([1.0, 1.5, 2.0])[:, None]
+    executed = []
+
+    def counting(matvec, b, **kw):
+        executed.append(tuple(b.shape))
+        return dso.sharded_solve_cg(matvec, b, **kw)
+
+    ls.register_solver("counting_sharded_cg_hessian", counting,
+                       symmetric_only=True, supports_precond=True)
+    try:
+        dec = implicit_diff(spec.replace(
+            solve="counting_sharded_cg_hessian"))(T_SOLVER)
+        hess = torch.func.hessian(
+            lambda t: (dec(None, t, _t(X), _t(y)) ** 2).sum())
+        batch = torch.func.vmap(hess)(_t(thetas))
+        n_batch, executed[:] = list(executed), []
+        one = hess(_t(thetas[1]))
+    finally:
+        ls._REGISTRY.pop("counting_sharded_cg_hessian", None)
+    assert [b[0] for b in executed] == [B * B, B, B * B]
+    assert [b[0] for b in n_batch] == [3 * B * B, 3 * B, 3 * B * B]
+    np.testing.assert_array_equal(_np(batch[1]), _np(one))
+    jdec = jimplicit(jspec)(J_SOLVER)
+    want = jax.jit(jax.vmap(jax.hessian(lambda t: jnp.sum(jdec(
+        None, t, jnp.asarray(X), jnp.asarray(y)) ** 2))))(
+        jnp.asarray(thetas))
+    np.testing.assert_allclose(_np(batch), np.asarray(want), atol=GRAD_TOL)
+    plain = implicit_diff(spec.replace(sharding=None))(T_SOLVER)
+    unsharded = torch.func.vmap(torch.func.hessian(
+        lambda t: (plain(None, t, _t(X), _t(y)) ** 2).sum()))(_t(thetas))
+    np.testing.assert_allclose(_np(batch), _np(unsharded), atol=1e-12)
 
 
 def test_spec_validation(mesh):
