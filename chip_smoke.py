@@ -1723,6 +1723,9 @@ def prefill_time(cfg, params, tokens, use_kernel, reps=3):
 
 # kernel-name fragments of the prefill's matrix products (cuBLAS / CUTLASS)
 GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+# name prefixes of the port's spans (``observability.spans``): profiler
+# ranges that the profiler reports with device spans of their own
+PORT_SPANS = ("model.", "kernels.", "train_step/")
 
 
 def prefill_profile(cfg, params, tokens):
@@ -1751,6 +1754,8 @@ def prefill_profile(cfg, params, tokens):
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         name = ev.key
+        if name.startswith(PORT_SPANS):
+            continue
         if "fa_forward" in name or "wkv6_forward" in name:
             by_kind["port kernels"] += us / 1e3
             others[name] = others.get(name, 0.0) + us / 1e3
@@ -3007,9 +3012,9 @@ ATTENTION_OPS = ("aten::einsum", "aten::softmax", "aten::_softmax",
                  "aten::where", "BmmBackward", "SoftmaxBackward",
                  "WhereBackward")
 # what the profiler reports beside the kernels, with device times of its
-# own: the train step's record_function ranges (their device spans) and
-# the host blocked on a full launch queue
-NOT_KERNELS = ("train_step/", "Command Buffer Full")
+# own: the host blocked on a full launch queue, and the port's spans (the
+# train step's and the forward's ranges: their device spans)
+NOT_KERNELS = ("Command Buffer Full",) + PORT_SPANS
 
 
 def train_profile(step_fn, state, x, y, device):
@@ -3051,7 +3056,7 @@ def train_profile(step_fn, state, x, y, device):
         return None
 
     def kernels_us(e):
-        if any(e.name.startswith(n) for n in NOT_KERNELS[1:]):
+        if e.name.startswith(NOT_KERNELS[0]):
             return 0.0
         return sum(k.duration for k in e.kernels) + sum(
             kernels_us(c) for c in e.cpu_children)

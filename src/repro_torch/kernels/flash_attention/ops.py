@@ -33,7 +33,10 @@ with Sq = Sk, where the two conventions agree.
 ``LAUNCHES`` counts kernel launches and ``LAUNCHES_BY_ROUTE`` splits them
 by route (plain ints, for showing that a run went through the kernels);
 each launch is also recorded in an active ``analysis.op_census.Census``
-as a custom call.
+as a custom call.  The op runs in the span ``kernels.flash_attention``
+(``observability.spans``; a tracer's span is tagged with the route), so
+its host work (the route choice, the copies) and its launch are named in
+a profile.
 The JAX op's ``block_q``, ``block_k`` and ``interpret`` are TPU parameters
 and have no counterpart here.
 """
@@ -44,6 +47,7 @@ import torch
 from repro_torch.analysis import op_census
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.observability.spans import span
 
 LAUNCHES = 0
 LAUNCHES_BY_ROUTE = {name: 0 for name in kernel.ROUTES}
@@ -54,12 +58,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) with H % Hkv == 0.
     Returns (B, Sq, H, D) in q's dtype."""
     global LAUNCHES
-    if q.device.type == "cuda":
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors; got "
+                         f"{q.device}")
+    with span("kernels.flash_attention") as sp:
+        if q.device.type == "cpu":
+            return attention_ref(q, k, v, causal=causal)
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
             raise RuntimeError("the flash_attention kernel is forward only; "
                                "run it under torch.no_grad()")
         name = kernel.route(q, k, v)
+        if sp is not None:
+            sp.tags["route"] = name
         if name == "simt":
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out = kernel.launch(q, k, v, causal, route_name=name)
@@ -67,7 +78,3 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         LAUNCHES_BY_ROUTE[name] += 1
         op_census.record_custom_call("flash_attention", (q, k, v), out)
         return out
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal)
-    raise ValueError(f"flash_attention runs on CUDA or CPU tensors; got "
-                     f"{q.device}")

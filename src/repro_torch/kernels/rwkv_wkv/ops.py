@@ -18,7 +18,10 @@ at an odd offset) is copied first.
 
 ``LAUNCHES`` counts kernel launches (a plain int, for showing that a run
 went through the kernel); each launch is also recorded in an active
-``analysis.op_census.Census`` as a custom call.  The JAX op's ``chunk`` and ``interpret`` are
+``analysis.op_census.Census`` as a custom call.  The op runs in the span
+``kernels.rwkv_wkv`` (``observability.spans``), so its host work (the
+widening and alignment copies) and its launch are named in a profile.
+The JAX op's ``chunk`` and ``interpret`` are
 TPU parameters and have no counterpart here.
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from repro_torch.analysis import op_census
 from repro_torch.kernels.rwkv_wkv import kernel
 from repro_torch.kernels.rwkv_wkv.ref import wkv_scan_ref
+from repro_torch.observability.spans import span
 
 LAUNCHES = 0
 
@@ -46,7 +50,12 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     Returns (out (B, T, H, N), final state (B, H, N, N) float32) — the
     contract of ``wkv_scan_ref``."""
     global LAUNCHES
-    if r.device.type == "cuda":
+    if r.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"rwkv_wkv runs on CUDA or CPU tensors; got "
+                         f"{r.device}")
+    with span("kernels.rwkv_wkv"):
+        if r.device.type == "cpu":
+            return wkv_scan_ref(r, k, v, w, u, state0)
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (r, k, v, w, u)):
             raise RuntimeError("the rwkv_wkv kernel is forward only; run it "
@@ -59,7 +68,3 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         LAUNCHES += 1
         op_census.record_custom_call("rwkv_wkv", args, out)
         return out
-    if r.device.type == "cpu":
-        return wkv_scan_ref(r, k, v, w, u, state0)
-    raise ValueError(f"rwkv_wkv runs on CUDA or CPU tensors; got "
-                     f"{r.device}")

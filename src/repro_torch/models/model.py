@@ -67,6 +67,17 @@ read (every layer of ``deepseek-v2-236b`` is MoE), MLA never reaches the
 flash-attention op, and decode runs MoE with dense dispatch whatever
 ``forward``'s ``moe_dispatch``.
 
+Spans (``observability.spans.span``: ranges in a ``torch.profiler`` trace
+while one records, spans of an installed tracer, one boolean check
+otherwise) name the forward's layers, one name per block kind:
+``model.embed``; ``model.attention`` (``ln1``, the attention, the residual
+add), then ``model.mlp`` or ``model.moe`` (``ln2``, the MLP or the
+dispatch with its router ``model.moe.router``, the residual add);
+``model.time_mix`` and ``model.channel_mix`` (RWKV-6); ``model.mamba`` and
+``model.shared_attention`` (the hybrid); ``model.head`` (the final norm and
+the unembedding).  The kernel ops open ``kernels.flash_attention`` and
+``kernels.rwkv_wkv`` inside them.
+
 Differences of form from the reference, none of result:
 
   * Parameters are a dict of tensors whose names are the JAX pytree paths
@@ -102,6 +113,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
 from repro_torch.models import rwkv as R
+from repro_torch.observability.spans import span
 
 Params = Dict[str, Any]
 
@@ -176,53 +188,63 @@ def init_params_abstract(cfg: ArchConfig) -> Params:
 def _dense_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
                  use_kernel: bool, moe_dispatch: str = "dense"):
     bp = gathered_over_batch(bp, h)
-    x = L.rmsnorm(bp["ln1"], h, cfg.norm_eps)
-    if cfg.use_mla:
-        a, _ = L.mla_apply(bp["attn"], cfg, x)
-    else:
-        a, _ = L.attention_apply(bp["attn"], cfg, x, use_kernel=use_kernel)
-    h = h + reduced(a)
-    m_in = L.rmsnorm(bp["ln2"], h, cfg.norm_eps)
-    if cfg.moe:
+    with span("model.attention"):
+        x = L.rmsnorm(bp["ln1"], h, cfg.norm_eps)
+        if cfg.use_mla:
+            a, _ = L.mla_apply(bp["attn"], cfg, x)
+        else:
+            a, _ = L.attention_apply(bp["attn"], cfg, x,
+                                     use_kernel=use_kernel)
+        h = h + reduced(a)
+    if not cfg.moe:
+        with span("model.mlp"):
+            mo = L.mlp_apply(bp["mlp"], L.rmsnorm(bp["ln2"], h, cfg.norm_eps),
+                             cfg.mlp_activation)
+            return h + reduced(mo), 0.0
+    with span("model.moe"):
+        m_in = L.rmsnorm(bp["ln2"], h, cfg.norm_eps)
         if moe_dispatch == "sparse":
             mo, aux = X.moe_apply_sparse_gather(bp["mlp"], cfg, m_in)
         else:
             mo, aux = X.moe_apply_dense(bp["mlp"], cfg, m_in)
-    else:
-        mo, aux = L.mlp_apply(bp["mlp"], m_in, cfg.mlp_activation), 0.0
-    return h + reduced(mo), aux
+        return h + reduced(mo), aux
 
 
 def _rwkv_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
                 use_kernel: bool):
     bp = gathered_over_batch(bp, h)
-    a, _ = R.time_mix_apply(bp["tm"], cfg,
-                            L.rmsnorm(bp["ln1"], h, cfg.norm_eps),
-                            use_kernel=use_kernel)
-    h = h + reduced(a)
-    c, _ = R.channel_mix_apply(bp["cm"], cfg,
-                               L.rmsnorm(bp["ln2"], h, cfg.norm_eps))
-    return h + reduced(c), 0.0
+    with span("model.time_mix"):
+        a, _ = R.time_mix_apply(bp["tm"], cfg,
+                                L.rmsnorm(bp["ln1"], h, cfg.norm_eps),
+                                use_kernel=use_kernel)
+        h = h + reduced(a)
+    with span("model.channel_mix"):
+        c, _ = R.channel_mix_apply(bp["cm"], cfg,
+                                   L.rmsnorm(bp["ln2"], h, cfg.norm_eps))
+        return h + reduced(c), 0.0
 
 
 def _mamba_block(bp: Params, cfg: ArchConfig, h: torch.Tensor):
     bp = gathered_over_batch(bp, h)
-    a, _ = M.mamba_apply(bp["mamba"], cfg,
-                         L.rmsnorm(bp["ln1"], h, cfg.norm_eps))
-    return h + reduced(a), 0.0
+    with span("model.mamba"):
+        a, _ = M.mamba_apply(bp["mamba"], cfg,
+                             L.rmsnorm(bp["ln1"], h, cfg.norm_eps))
+        return h + reduced(a), 0.0
 
 
 def _shared_attn_block(sp: Params, cfg: ArchConfig, h: torch.Tensor,
                        use_kernel: bool, kv_cache=None, cache_index=None):
     sp = gathered_over_batch(sp, h)
-    a, cache = L.attention_apply(sp["attn"], cfg,
-                                 L.rmsnorm(sp["ln1"], h, cfg.norm_eps),
-                                 kv_cache=kv_cache, cache_index=cache_index,
-                                 use_kernel=use_kernel)
-    h = h + reduced(a)
-    return h + reduced(L.mlp_apply(
-        sp["mlp"], L.rmsnorm(sp["ln2"], h, cfg.norm_eps),
-        cfg.mlp_activation)), cache
+    with span("model.shared_attention"):
+        a, cache = L.attention_apply(sp["attn"], cfg,
+                                     L.rmsnorm(sp["ln1"], h, cfg.norm_eps),
+                                     kv_cache=kv_cache,
+                                     cache_index=cache_index,
+                                     use_kernel=use_kernel)
+        h = h + reduced(a)
+        return h + reduced(L.mlp_apply(
+            sp["mlp"], L.rmsnorm(sp["ln2"], h, cfg.norm_eps),
+            cfg.mlp_activation)), cache
 
 
 def _segments(cfg: ArchConfig):
@@ -295,7 +317,8 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
     residual after every trunk block (sequence parallelism), both
     ``NamedSharding``s; without ``sp_sharding`` the residual after every
     block takes ``act_sharding`` (see the module docstring)."""
-    h = constrain(_embed_inputs(params, cfg, inputs), act_sharding)
+    with span("model.embed"):
+        h = constrain(_embed_inputs(params, cfg, inputs), act_sharding)
     if cfg.family == "ssm":
         block = lambda bp, h: _rwkv_block(bp, cfg, h, use_kernel)
     elif cfg.family == "hybrid":
@@ -324,10 +347,12 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
             h, aux = block(bp, h)
             h = constrain(h, between)
             auxs.append(aux)
-    h = L.rmsnorm(params["final_norm"], constrain(h, act_sharding),
-                  cfg.norm_eps)
+    with span("model.head"):
+        h = L.rmsnorm(params["final_norm"], constrain(h, act_sharding),
+                      cfg.norm_eps)
+        logits = L.unembed(params["embed"], h)
     aux_total = torch.stack(auxs).sum() if cfg.moe else 0.0
-    return L.unembed(params["embed"], h), aux_total
+    return logits, aux_total
 
 
 def loss_fn(params: Params, cfg: ArchConfig, inputs, labels,

@@ -16,6 +16,12 @@ expert products are batched over E (``torch.matmul`` of the (N, d) tokens
 against the (E, d, f) stack), so no copy of a weight stack is made; the
 down-projection contracts (e, f) jointly, as the reference's
 ``"bsef,efd->bsd"`` does.  The router is float32 in a bfloat16 model.
+
+While tracing is on (``observability.spans``), the router runs in the span
+``model.moe.router`` and each dispatch counts its expert rows on the host,
+from shapes alone, in ``moe_expert_rows_total``: ``kind="computed"`` the
+rows the expert products run (E·N for dense dispatch, E·cap for the sparse
+ones), ``kind="routed"`` the rows the router assigns (k·N).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch._dtensor import is_dtensor
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.observability.spans import count, span
 
 Params = Dict[str, Any]
 
@@ -63,17 +70,24 @@ def moe_init(gen, cfg: ArchConfig, device=None) -> Params:
 
 def _router_probs(params: Params, m: MoEConfig, x: torch.Tensor):
     """Returns (top-k gates (..., E) dense-masked and renormalised, aux)."""
-    logits = x.to(torch.float32) @ params["router"]
-    probs = torch.softmax(logits, dim=-1)
-    topv, topi = torch.topk(probs, m.top_k, dim=-1)
-    topv = topv / topv.sum(dim=-1, keepdim=True)       # renormalise top-k
-    gates = torch.zeros_like(probs).scatter_(-1, topi, topv)
-    # Switch-style load balancing: E * Σ_e f_e · p̄_e
-    E = probs.shape[-1]
-    frac_routed = (gates.reshape(-1, E) > 0).to(torch.float32).mean(dim=0)
-    mean_prob = probs.reshape(-1, E).mean(dim=0)
-    aux = E * torch.sum(frac_routed * mean_prob)
-    return gates, aux
+    with span("model.moe.router"):
+        logits = x.to(torch.float32) @ params["router"]
+        probs = torch.softmax(logits, dim=-1)
+        topv, topi = torch.topk(probs, m.top_k, dim=-1)
+        topv = topv / topv.sum(dim=-1, keepdim=True)   # renormalise top-k
+        gates = torch.zeros_like(probs).scatter_(-1, topi, topv)
+        # Switch-style load balancing: E * Σ_e f_e · p̄_e
+        E = probs.shape[-1]
+        frac_routed = (gates.reshape(-1, E) > 0).to(torch.float32).mean(
+            dim=0)
+        mean_prob = probs.reshape(-1, E).mean(dim=0)
+        aux = E * torch.sum(frac_routed * mean_prob)
+        return gates, aux
+
+
+def _count_rows(computed: int, routed: int) -> None:
+    count("moe_expert_rows_total", computed, kind="computed")
+    count("moe_expert_rows_total", routed, kind="routed")
 
 
 def _shared(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -99,6 +113,7 @@ def moe_apply_dense(params: Params, cfg: ArchConfig,
     m = cfg.moe
     B, S, d = x.shape
     E, N = m.num_experts, B * S
+    _count_rows(E * N, m.top_k * N)
     gates, aux = _router_probs(params, m, x)              # (B, S, E)
     h = _experts(params, x.reshape(N, d))                 # (E, N, f)
     # gate before the down-projection, which contracts (e, f) jointly
@@ -133,10 +148,11 @@ def moe_apply_sparse_gather(params: Params, cfg: ArchConfig,
     E, k = m.num_experts, m.top_k
     N = B * S
     xf = x.reshape(N, d)
+    cap = _capacity(capacity_factor, N, k, E)
+    _count_rows(E * cap, k * N)
     gates, aux = _router_probs(params, m, x)
     gflat = gates.reshape(N, E)
 
-    cap = _capacity(capacity_factor, N, k, E)
     active = gflat > 0
     pos = torch.cumsum(active.to(torch.int32), dim=0) - 1
     keep = active & (pos < cap)
@@ -168,10 +184,11 @@ def moe_apply_sparse(params: Params, cfg: ArchConfig, x: torch.Tensor,
     E, k = m.num_experts, m.top_k
     N = B * S
     xf = x.reshape(N, d)
+    cap = _capacity(capacity_factor, N, k, E)
+    _count_rows(E * cap, k * N)
     gates, aux = _router_probs(params, m, x)
     gflat = gates.reshape(N, E)
 
-    cap = _capacity(capacity_factor, N, k, E)
     active = (gflat > 0).to(torch.int32)
     pos = torch.cumsum(active, dim=0) - 1                 # (N, E)
     keep = (pos < cap) & (active > 0)

@@ -7,7 +7,10 @@ package:
     :func:`observe` switch (one boolean check when off); ``jit_event`` and
     ``jit_event_pair``, the reference's names for events from traced code,
     are ``emit`` and ``emit_pair`` here;
-  * **spans** — a host-side tracer writing JSONL traces;
+  * **spans** — the one range API (``span``: a ``torch.profiler`` range
+    while a profiler records, a span of the host tracer writing JSONL
+    while one is installed, one boolean check otherwise) and ``count``,
+    counters of the global registry behind the same gate;
   * **metrics** — a ``MetricsRegistry`` of counters/gauges/histograms with
     a JSON snapshot and Prometheus text exposition;
   * **report** — loads JSONL traces and summarizes latency percentiles and
@@ -31,8 +34,8 @@ from repro_torch.observability.metrics import (DEFAULT_BUCKETS,
 from repro_torch.observability.report import (format_summary, load_trace,
                                               summarize)
 from repro_torch.observability.spans import (Span, Tracer, configure_tracer,
-                                             current_tracer, remove_tracer,
-                                             span)
+                                             count, current_tracer,
+                                             remove_tracer, span)
 
 __all__ = [
     "EVENT_KINDS", "SolveEvent", "observe", "observing",
@@ -43,6 +46,6 @@ __all__ = [
     "reset_global_registry", "DEFAULT_BUCKETS", "ITERATION_BUCKETS",
     "LATENCY_BUCKETS",
     "Span", "Tracer", "configure_tracer", "current_tracer",
-    "remove_tracer", "span",
+    "remove_tracer", "span", "count",
     "load_trace", "summarize", "format_summary",
 ]

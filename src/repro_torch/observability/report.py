@@ -2,7 +2,9 @@
 
 Host-only port of ``repro.observability.report`` (same summary schema).
 
-``load_trace(path)`` reads the records a ``Tracer`` wrote;
+``load_trace(path)`` reads the spans and events a ``Tracer`` wrote (the
+file's ``clock`` record, which anchors it to the profiler's timeline, is
+left out);
 ``summarize(records)`` reduces them to:
 
   * per-span-name latency percentiles (count, p50/p95/p99, in ms);
@@ -26,13 +28,16 @@ __all__ = ["load_trace", "summarize", "format_summary", "main"]
 
 
 def load_trace(path) -> List[dict]:
-    """Read a JSONL trace file into a list of record dicts."""
+    """Read a JSONL trace file into a list of its span and event records
+    (the ``clock`` record is skipped)."""
     records = []
     with open(str(path)) as f:
         for line in f:
             line = line.strip()
             if line:
-                records.append(json.loads(line))
+                rec = json.loads(line)
+                if rec.get("type") != "clock":
+                    records.append(rec)
     return records
 
 

@@ -1,6 +1,20 @@
-"""Host-side span tracer: JSONL traces with monotonic timestamps.
+"""Spans and counters: one range API for the host tracer and
+``torch.profiler``, behind one gate.
 
-Host-only port of ``repro.observability.spans`` (same record schema).
+Host-only port of ``repro.observability.spans`` (same record schema), with
+the port's own gate:
+
+  * :func:`span` is **off** unless a ``torch.profiler`` is recording
+    (``torch.autograd._profiler_enabled()``) or a tracer is installed.  Off, it costs one boolean
+    check and returns a shared no-op context: no ``record_function``, no
+    lock, no allocation of its own.
+  * While a profiler records, a span opens a
+    ``torch.profiler.record_function`` range of the same name, so it lands
+    in the profiler's trace beside the device work, and every kernel
+    launched inside it is tied to it by the launch's correlation id.
+  * While a tracer is installed, the span is recorded to it (below).
+  * :func:`count` adds to a counter of the process-global
+    ``MetricsRegistry`` under the same gate.
 
 A :class:`Tracer` records **spans** (named intervals with parent ids, so
 nested work reconstructs as a tree) and **events** (instants forwarded
@@ -8,14 +22,20 @@ from the solve event stream).  Records are kept in memory and — when a
 path is configured — appended to a JSONL trace file, one JSON object per
 line:
 
+    {"type": "clock", "perf_counter": 12.000, "epoch_ns": 1792...}
     {"type": "span",  "name": "dispatch", "id": 3, "parent": 1,
      "ts": 12.031, "dur": 0.0042, "tags": {...}}
     {"type": "event", "kind": "solve", "ts": 12.034, "span": 3,
      "tags": {...}, "values": {...}}
 
-Timestamps are ``time.perf_counter()`` — monotonic seconds within the
-process, which is what latency analysis needs (wall-clock epochs are
-deliberately absent: traces compare *within* a run).
+Timestamps are ``time.perf_counter()`` seconds: monotonic within the
+process, which is what latency analysis needs.  The file's first record,
+``clock``, pairs a ``perf_counter`` reading with the Unix-epoch
+nanoseconds read back to back with it (``Tracer.clock``).  The
+profiler's events (``torch.profiler``'s kineto trace, device work
+included) carry Unix-epoch nanoseconds, so :meth:`Tracer.epoch_ns` places
+a span on the profiler's timeline.  ``records()`` holds spans and events
+only.
 
 Nesting is tracked with a :mod:`contextvars` variable, so ``with
 span("dispatch"):`` blocks parent correctly per thread/task; lifecycles
@@ -37,7 +57,13 @@ import threading
 import time
 from typing import Optional
 
-__all__ = ["Span", "Tracer", "configure_tracer", "current_tracer", "span"]
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+from repro_torch.observability import metrics as _metrics
+
+__all__ = ["Span", "Tracer", "configure_tracer", "current_tracer", "span",
+           "count"]
 
 _CURRENT_SPAN: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_observability_span", default=None)
@@ -76,6 +102,19 @@ class Tracer:
         self._records: list = []
         self.path = str(path) if path is not None else None
         self._file = open(self.path, "w") if self.path else None
+        before = time.perf_counter()
+        epoch_ns = time.time_ns()
+        after = time.perf_counter()
+        self.clock = {"type": "clock", "perf_counter": (before + after) / 2,
+                      "epoch_ns": epoch_ns}
+        if self._file is not None:
+            self._file.write(json.dumps(self.clock) + "\n")
+
+    def epoch_ns(self, ts: float) -> int:
+        """Unix-epoch nanoseconds (the profiler's clock) of the
+        ``perf_counter`` time ``ts``, through :attr:`clock`."""
+        return self.clock["epoch_ns"] + round(
+            (ts - self.clock["perf_counter"]) * 1e9)
 
     # -- low-level record sink ----------------------------------------------
 
@@ -203,13 +242,60 @@ def current_tracer() -> Optional[Tracer]:
     return _tracer
 
 
-@contextlib.contextmanager
+class _Off:
+    """The shared no-op context of a span with tracing off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_OFF = _Off()
+
+
+class _Range:
+    """A span with tracing on: a ``record_function`` range while a profiler
+    records, a tracer span while a tracer is installed."""
+
+    __slots__ = ("name", "tags", "_range", "_scope")
+
+    def __init__(self, name: str, tags: dict):
+        self.name = name
+        self.tags = tags
+
+    def __enter__(self):
+        self._range = None
+        if _profiler_enabled():
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        tr = _tracer
+        self._scope = None if tr is None else tr.span(self.name, **self.tags)
+        return None if self._scope is None else self._scope.__enter__()
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._scope is not None:
+            self._scope.__exit__(exc_type, exc, tb)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        return None
+
+
 def span(name: str, **tags):
-    """Scoped span on the global tracer; a silent no-op when tracing is
-    not configured (yields ``None``)."""
-    tr = current_tracer()
-    if tr is None:
-        yield None
+    """Scoped span: a ``record_function`` range of ``name`` while a
+    profiler records, a span of the global tracer (yielded) while one is
+    installed, the shared no-op (yielding ``None``) otherwise."""
+    if _tracer is None and not _profiler_enabled():
+        return _OFF
+    return _Range(name, tags)
+
+
+def count(name: str, n: float = 1.0, **labels) -> None:
+    """Add ``n`` to the global registry's counter ``name{labels}`` while a
+    profiler records or a tracer is installed; nothing otherwise."""
+    if _tracer is None and not _profiler_enabled():
         return
-    with tr.span(name, **tags) as sp:
-        yield sp
+    _metrics.global_registry().counter(name, **labels).inc(n)

@@ -46,8 +46,9 @@ Differences of form from the reference:
   * The metrics stay device tensors; ``train_loop`` reads them on the host
     only at ``log_every``, and its straggler monitor waits on
     ``torch.cuda.synchronize()`` where the reference blocks on the loss.
-  * The step is timed in profiles by ``torch.profiler.record_function``
-    ranges: ``train_step/forward_backward``, ``train_step/clip``,
+  * The step is timed in profiles by spans (``observability.spans.span``:
+    ``torch.profiler`` ranges while a profiler records, nothing otherwise):
+    ``train_step/forward_backward``, ``train_step/clip``,
     ``train_step/compress`` and ``train_step/update``.
 """
 from __future__ import annotations
@@ -57,7 +58,6 @@ import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from repro_torch._dtensor import constrain, full, is_dtensor, local, whole
@@ -65,6 +65,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import ShardingRules, batch_spec
 from repro_torch.distributed.spec import NamedSharding
 from repro_torch.models import model as mdl
+from repro_torch.observability.spans import span
 from repro_torch.optim import grad_compression as gc
 from repro_torch.optim import optimizer as opt
 
@@ -250,15 +251,15 @@ def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
         x, y = (a if is_dtensor(a) else constrain(
             torch.as_tensor(a, device=device), placed)
             for a in (inputs, labels))
-        with record_function("train_step/forward_backward"):
+        with span("train_step/forward_backward"):
             loss, grads = value_and_grad(state.params, x, y)
-        with record_function("train_step/clip"):
+        with span("train_step/clip"):
             grads, gnorm = opt.clip_by_global_norm(grads, tcfg.clip_norm)
         err_state = state.err_state
         if tcfg.compress_grads:
-            with record_function("train_step/compress"):
+            with span("train_step/compress"):
                 grads, err_state = gc.roundtrip(grads, err_state)
-        with record_function("train_step/update"):
+        with span("train_step/update"):
             updates, opt_state = optimizer.update(grads, state.opt_state,
                                                   state.params)
             del grads
