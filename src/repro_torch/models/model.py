@@ -65,7 +65,12 @@ nothing.
 Behaviours of the reference kept as they are: ``moe_layer_start`` is not
 read (every layer of ``deepseek-v2-236b`` is MoE), MLA never reaches the
 flash-attention op, and decode runs MoE with dense dispatch whatever
-``forward``'s ``moe_dispatch``.
+``forward``'s ``moe_dispatch``.  ``forward``'s dense dispatch is the
+reference's on the CPU, under autograd and on a mesh; a forward on the
+card without autograd, large enough that dense dispatch's wasted products
+outweigh the dropless path's launches (``DROPLESS_MIN_WASTE_FLOP``), runs
+the same function by dropless dispatch (``moe.moe_apply_dropless``: each
+token through its top-k experts only).
 
 Spans (``observability.spans.span``: ranges in a ``torch.profiler`` trace
 while one records, spans of an installed tracer, one boolean check
@@ -205,9 +210,35 @@ def _dense_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
         m_in = L.rmsnorm(bp["ln2"], h, cfg.norm_eps)
         if moe_dispatch == "sparse":
             mo, aux = X.moe_apply_sparse_gather(bp["mlp"], cfg, m_in)
+        elif _dropless(m_in, cfg):
+            mo, aux = X.moe_apply_dropless(bp["mlp"], cfg, m_in)
         else:
             mo, aux = X.moe_apply_dense(bp["mlp"], cfg, m_in)
         return h + reduced(mo), aux
+
+
+# Dense dispatch's expert products spend 6·(E - k)·N·d·f FLOP a layer on
+# rows the router did not choose.  Dropless dispatch launches about twice
+# as many ops a layer, 0.7-0.95 ms more host time on an H100's host at 2 k
+# to 8 k tokens, which paces a small forward.  Below this much waste (about
+# the products' time for it at the 600-775 TFLOP/s they reach there) the
+# launches cost more than the waste: granite-moe-3b-a800m's prefill of one
+# 2,048-token prompt (3.1e11) ran 57 % longer by dropless dispatch, of four
+# (1.2e12) 39 % shorter, deepseek-v2-236b's of one (1.5e13) 47 % shorter.
+DROPLESS_MIN_WASTE_FLOP = 6e11
+
+
+def _dropless(x: torch.Tensor, cfg: ArchConfig) -> bool:
+    """Whether dense dispatch gives way to ``moe_apply_dropless``: on the
+    card, off a mesh and without autograd, as a prefill or scoring forward
+    runs, over enough tokens that dense dispatch's wasted products reach
+    ``DROPLESS_MIN_WASTE_FLOP``.  Training and mesh-placed forwards keep
+    the reference's formulation, which autograd and DTensor's sharding
+    rules go through."""
+    m = cfg.moe
+    waste = 6 * (m.num_experts - m.top_k) * x.numel() * m.expert_d_ff
+    return (x.is_cuda and not is_dtensor(x) and not torch.is_grad_enabled()
+            and waste >= DROPLESS_MIN_WASTE_FLOP)
 
 
 def _rwkv_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
@@ -309,12 +340,15 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
     included) through the flash-attention op and the RWKV recurrence
     through the WKV op; both are forward only, as the reference's Pallas
     kernels.  ``moe_dispatch="sparse"`` runs the MoE layers with
-    ``moe_apply_sparse_gather``, anything else with dense dispatch; a
-    model without MoE ignores it.  ``remat`` checkpoints each trunk block
-    under ``REMAT_POLICIES[remat_policy]`` when autograd records (see the
-    module docstring).  ``act_sharding`` places the (B, S, d) activations
-    after the embedding and before the final norm; ``sp_sharding`` the
-    residual after every trunk block (sequence parallelism), both
+    ``moe_apply_sparse_gather``, anything else with dense dispatch, which
+    on the card without autograd, off a mesh and over enough tokens
+    (``_dropless``) is ``moe_apply_dropless`` (the same function up to
+    summation order) and elsewhere ``moe_apply_dense``; a model without
+    MoE ignores it.  ``remat`` checkpoints each trunk block under
+    ``REMAT_POLICIES[remat_policy]`` when autograd records (see the module
+    docstring).  ``act_sharding`` places the (B, S, d) activations after
+    the embedding and before the final norm; ``sp_sharding`` the residual
+    after every trunk block (sequence parallelism), both
     ``NamedSharding``s; without ``sp_sharding`` the residual after every
     block takes ``act_sharding`` (see the module docstring)."""
     with span("model.embed"):

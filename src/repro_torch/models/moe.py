@@ -2,11 +2,16 @@
 
 Counterpart of ``repro/models/moe.py``.  Dense dispatch runs every expert
 on every token and the router's top-k weights gate the contributions; it
-is the one the serve paths take.  Two capacity-bounded sparse dispatches
-compute the same function for the tokens their capacity keeps: by gather
-and scatter-add (``moe_apply_sparse_gather``, what ``forward``'s
-``moe_dispatch="sparse"`` selects) and by one-hot dispatch and combine
-products (``moe_apply_sparse``).
+is the reference's formulation, and the one decode, training, mesh-placed
+forwards and every forward on the CPU take.  Dropless dispatch
+(``moe_apply_dropless``) computes the same function up to the order of
+summation, running each token through its top-k experts only; a forward
+on the card without autograd takes it (``models/model._dense_block``).
+Two capacity-bounded sparse dispatches compute the same function for the
+tokens their capacity keeps: by gather and scatter-add
+(``moe_apply_sparse_gather``, what ``forward``'s ``moe_dispatch="sparse"``
+selects) and by one-hot dispatch and combine products
+(``moe_apply_sparse``).
 
 DeepSeek-V2 details: shared experts (always on), top-k over the routed
 experts, the Switch-style auxiliary load-balancing loss.
@@ -15,13 +20,17 @@ Layout: the experts are stacked (E, d, f) as in the reference, and the
 expert products are batched over E (``torch.matmul`` of the (N, d) tokens
 against the (E, d, f) stack), so no copy of a weight stack is made; the
 down-projection contracts (e, f) jointly, as the reference's
-``"bsef,efd->bsd"`` does.  The router is float32 in a bfloat16 model.
+``"bsef,efd->bsd"`` does.  Dropless dispatch multiplies each expert's
+rows by its own (d, f) and (f, d) slices of the stacks, all experts in one
+grouped product (``torch._grouped_mm``).  The router is float32 in a
+bfloat16 model.
 
 While tracing is on (``observability.spans``), the router runs in the span
 ``model.moe.router`` and each dispatch counts its expert rows on the host,
 from shapes alone, in ``moe_expert_rows_total``: ``kind="computed"`` the
-rows the expert products run (E·N for dense dispatch, E·cap for the sparse
-ones), ``kind="routed"`` the rows the router assigns (k·N).
+rows the expert products run (E·N for dense dispatch, E·cap for the
+sparse ones, k·N for dropless dispatch), ``kind="routed"`` the rows the
+router assigns (k·N).
 """
 from __future__ import annotations
 
@@ -38,8 +47,8 @@ from repro_torch.observability.spans import count, span
 
 Params = Dict[str, Any]
 
-__all__ = ["moe_init", "moe_apply_dense", "moe_apply_sparse_gather",
-           "moe_apply_sparse"]
+__all__ = ["moe_init", "moe_apply_dense", "moe_apply_dropless",
+           "moe_apply_sparse_gather", "moe_apply_sparse"]
 
 
 def moe_init(gen, cfg: ArchConfig, device=None) -> Params:
@@ -122,6 +131,63 @@ def moe_apply_dense(params: Params, cfg: ArchConfig,
     out = h.transpose(0, 1).reshape(N, E * f) \
         @ params["w_down"].reshape(E * f, d)
     out = out.reshape(B, S, d)
+    if m.num_shared_experts:
+        out = out + _shared(params, x)
+    return out, aux
+
+
+def moe_apply_dropless(params: Params, cfg: ArchConfig,
+                       x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dropless top-k MoE: each routed (token, expert) pair runs its
+    expert's SwiGLU once, so the products run k·N rows where dense dispatch
+    runs E·N; the same function as ``moe_apply_dense`` up to the order of
+    summation.  Returns (out (B, S, d), aux), the router's own.
+
+    The pairs are those whose gate is > 0, in expert-major order, tokens
+    ascending, in (k·N, ·) buffers: the tokens' rows gathered once, then
+    each of the three products one grouped product over all experts
+    (``torch._grouped_mm``, each expert's rows against its own slice of the
+    stack, cut by per-expert offsets that stay on the device), and between
+    them SiLU·up and the gate, in the working type before the down product
+    as dense dispatch gates.  Nothing is read to the host.  A pair whose
+    gate underflowed to 0 (it adds nothing under dense dispatch either)
+    leaves a padding row at the end, gate 0, run with the last expert: its
+    output is exactly 0, and a token with fewer than k pairs reads the last
+    row in their place.  Each token then sums its k outputs in float32,
+    experts ascending, rounded to the working type once.  Nothing is
+    (E, N, ·): the largest transients are the (k·N, d) rows gathered in and
+    their outputs.
+    """
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k, N = m.num_experts, m.top_k, B * S
+    P, dev = k * N, x.device
+    _count_rows(P, P)
+    gates, aux = _router_probs(params, m, x)              # (B, S, E)
+    g = gates.reshape(N, E)
+    routed = (g > 0).T.contiguous()          # (E, N), k a token at most
+    # the routed (e, n) cells in expert-major order, E·N (token 0, gate 0)
+    # at a padding place; nonzero_static reads nothing to the host
+    em = routed.view(-1)
+    pair = torch.nonzero_static(em, size=P, fill_value=E * N).squeeze(1)
+    gate = F.pad(g.T.reshape(-1), (0, 1))[pair].to(x.dtype)[:, None]
+    offs = routed.sum(dim=1).cumsum(0).to(torch.int32)
+    offs[-1] = P                                          # padding: last expert
+    xs = x.reshape(N, d).index_select(0, pair % N)        # (P, d)
+    h = F.silu(torch._grouped_mm(xs, params["w_gate"], offs=offs)).mul_(
+        torch._grouped_mm(xs, params["w_up"], offs=offs)).mul_(gate)
+    del xs
+    y = torch._grouped_mm(h, params["w_down"], offs=offs)  # (P, d)
+    del h
+    # token n's places, experts ascending: its j-th routed expert's place
+    # in slot j, the padding row P - 1 in a slot it lacks, unrouted cells
+    # in slot k, dropped
+    place = em.cumsum(0).view(E, N) - 1
+    slot = torch.where(routed, routed.cumsum(0) - 1, k)
+    src = torch.full((k + 1, N), P - 1, device=dev).scatter_(
+        0, slot, place)[:k].T
+    out = y.index_select(0, src.reshape(-1)).view(N, k, d).sum(
+        dim=1, dtype=torch.float32).to(x.dtype).reshape(B, S, d)
     if m.num_shared_experts:
         out = out + _shared(params, x)
     return out, aux

@@ -10,8 +10,13 @@
     shared no-op and never touches ``record_function`` (patched to raise,
     the forward still runs), and ``count`` adds nothing.
   * ``moe_expert_rows_total`` counts E·N computed and k·N routed rows under
-    dense dispatch (routed ÷ computed = k/E) and E·cap computed under the
-    sparse gather.
+    dense dispatch (routed ÷ computed = k/E), E·cap computed under the
+    sparse gather and k·N computed under dropless dispatch (the forward
+    made to take it on the CPU).
+  * On the card (``cuda`` marker): a forward without autograd (the size
+    rule set to 0) takes dropless dispatch, counts k·N computed rows, and
+    gives dense dispatch's logits within the bfloat16 two-path bound of
+    ``tests/test_torch_model.py``.
   * The tracer's ``clock`` record places a span on the profiler's
     timeline within 1 ms of the same span's kineto start, and
     ``report.load_trace`` skips the record.
@@ -182,8 +187,8 @@ def _rows(registry):
             values.get('kind="routed"', 0.0))
 
 
-@pytest.mark.parametrize("dispatch", ["dense", "sparse"])
-def test_expert_rows_are_counted_only_while_tracing(dispatch):
+@pytest.mark.parametrize("dispatch", ["dense", "sparse", "dropless"])
+def test_expert_rows_are_counted_only_while_tracing(dispatch, monkeypatch):
     cfg = _config("granite-moe-3b-a800m")
     E, k = cfg.moe.num_experts, cfg.moe.top_k
     params = mdl.init_params(cfg, torch.Generator().manual_seed(0),
@@ -192,21 +197,77 @@ def test_expert_rows_are_counted_only_while_tracing(dispatch):
     N = x.numel()
     reg = metrics.global_registry()
     before = _rows(reg)
+    if dispatch == "dropless":        # as on the card without autograd
+        monkeypatch.setattr(mdl, "_dropless", lambda t, cfg: True)
 
     def fwd():
         with torch.no_grad():
-            mdl.forward(params, cfg, x, remat=False, moe_dispatch=dispatch)
+            mdl.forward(params, cfg, x, remat=False,
+                        moe_dispatch="sparse" if dispatch == "sparse"
+                        else "dense")
     fwd()
     assert _rows(reg) == before
     with torch.profiler.profile():
         fwd()
     computed, routed = (a - b for a, b in zip(_rows(reg), before))
-    rows = E * N if dispatch == "dense" else \
-        E * moe._capacity(2.0, N, k, E)
+    rows = {"dense": E * N, "sparse": E * moe._capacity(2.0, N, k, E),
+            "dropless": k * N}[dispatch]
     assert computed == cfg.num_layers * rows
     assert routed == cfg.num_layers * k * N
     if dispatch == "dense":
         assert 100.0 * routed / computed == pytest.approx(100.0 * k / E)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run with `pytest -m cuda` on the "
+                    "card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_a_forward_on_the_card_runs_dropless_dispatch(cuda_device,
+                                                      monkeypatch):
+    """granite at its smoke size in bfloat16 (``DROPLESS_MIN_WASTE_FLOP``
+    set to 0, which the published widths pass at the cells' sizes): a
+    forward without autograd counts k·N computed rows; with autograd on
+    (dense dispatch) its logits
+    agree within ‖Δ‖/‖ref‖ ≤ 3e-2, and within atol 0.15, rtol 0.1 over the
+    tokens routed alike in every layer (a changed expert is a jump, not a
+    rounding)."""
+    cfg = dataclasses.replace(_config("granite-moe-3b-a800m"),
+                              dtype="bfloat16")
+    k = cfg.moe.top_k
+    params = mdl.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    x = _tokens(cfg).to(cuda_device)
+    N = x.numel()
+    real, sets = moe._router_probs, []
+
+    def recording(p, m, h):
+        gates, aux = real(p, m, h)
+        sets.append(gates > 0)
+        return gates, aux
+    monkeypatch.setattr(moe, "_router_probs", recording)
+    monkeypatch.setattr(mdl, "DROPLESS_MIN_WASTE_FLOP", 0)
+    reg = metrics.global_registry()
+    before = _rows(reg)
+    with torch.no_grad(), torch.profiler.profile():
+        got, _ = mdl.forward(params, cfg, x, remat=False)
+    computed, routed = (a - b for a, b in zip(_rows(reg), before))
+    assert computed == routed == cfg.num_layers * k * N
+    with torch.enable_grad():
+        want, _ = mdl.forward(params, cfg, x, remat=False)
+    L = cfg.num_layers
+    flipped = torch.stack([(a != b).any(-1)
+                           for a, b in zip(sets[:L], sets[L:])]).any(0)
+    g, w = got.float().cpu(), want.float().cpu()
+    assert torch.linalg.vector_norm(g - w) <= \
+        3e-2 * torch.linalg.vector_norm(w)
+    keep = ~flipped.cpu()
+    torch.testing.assert_close(g[keep], w[keep], atol=0.15, rtol=0.1)
 
 
 def test_the_clock_record_places_a_span_on_the_profiler_timeline(tmp_path):
