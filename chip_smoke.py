@@ -295,13 +295,15 @@ Each phase prints one line:
      bfloat16 limit 5e-2;
  27. ``deepseek-v2-236b`` at full width (d 5120, 128 heads, kv_lora 512,
      q_lora 1536, 160 routed + 2 shared experts, top-6, f 1536) and 2 of
-     its 60 layers (60 take ≈ 470 GB), prefill (1, 2048): MLA never reaches
-     the flash-attention kernel (as in the reference), so every prefill
-     launches 0 and the kernel prefill equals ``use_kernel=False`` bit for
-     bit; the controls act on ``mla_apply`` (zeroed output, sequence
-     reversed), above 5e-2; float32 decode against prefill (1, 64) within
-     1e-5 and at 1 layer within 1e-5; the launcher (which runs the whole
-     config) is not run;
+     its 60 layers (60 take ≈ 470 GB), prefill (1, 2048): the bfloat16
+     prefill routes MLA's core to the MLA kernel
+     (``kernels/mla_attention``), exactly 2 launches, all ``tc``, within
+     5e-2 of ``use_kernel=False``; the float32 prefill keeps the formula,
+     0 launches, equal to ``use_kernel=False`` bit for bit; the controls
+     act on ``mla_apply`` (zeroed output, sequence reversed), above 5e-2,
+     and its plain core in the kernel's place is the floor; float32
+     decode against prefill (1, 64) within 1e-5 and at 1 layer within
+     1e-5; the launcher (which runs the whole config) is not run;
  28. LM training on one card (no kernel on the path: the hand-written
      kernels are forward only, as the reference's Pallas kernels, so the
      train step runs the plain attention): (a) ``qwen1.5-4b`` whole at
@@ -382,9 +384,15 @@ Each phase prints one line:
      launches each) and of ``grad`` of ``root_vjp`` at a fixed x* (two),
      each within 1e-3 of the float64 closed form (``root_vjp``'s, a dot
      product (A⁻¹v)·(A⁻¹x*) that a random v can bring near 0, relative to
-     ‖A⁻¹v‖‖A⁻¹x*‖).
+     ‖A⁻¹v‖‖A⁻¹x*‖);
+ 31. the MLA kernel (``kernels/mla_attention``) against its plain version
+     at DeepSeek-V2's widths (q 128 + 64, v 128, bfloat16, causal, q_nope
+     a strided view, the rope key shared by every head) at (1, 8192, 2),
+     ragged lengths and (1, 2048, 128), within one bf16 rounding + 1e-4
+     max|ref|, one ``tc`` launch each; its time at the benchmark's shape
+     (4, 8192, 128) by CUDA events against its bound.
 
-Phases 17-30 each print their duration on a line of their own, and the
+Phases 17-31 each print their duration on a line of their own, and the
 script its total.  The run
 fails at once if ``REPRO_AUTOTUNE_CACHE`` is set: phases 3-20 hold every
 batched-CG launch to the kernel's rule, which only a cold tuning cache
@@ -398,6 +406,7 @@ batched_cg, ``ops.LAUNCHES_BY_LAYOUT``; for flash attention,
 batched_cg — not 22's sweep, whose
 launches it prints apart —
 phase 6's forward and backward each on their own, 10 for simplex_proj,
+27 and 31 for mla_attention (``ops.LAUNCHES_BY_ROUTE``),
 each kernel prefill of 14, 25-27 and 29 (c) for flash_attention and of
 15 for rwkv_wkv, and the training loops of 28 and 29 (a) for
 flash_attention and rwkv_wkv, which must read 0; the JSON line reports the
@@ -476,6 +485,11 @@ FA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
 FA_SIMT_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu")
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:27"
+MLA_SOURCE = "src/repro_torch/kernels/mla_attention/csrc/mla_attention.cu"
+# phase 31: (B, S, H) at DeepSeek-V2's widths, and the benchmark's shape
+MLA_SHAPES = [(1, 8192, 2), (2, 1000, 3), (3, 77, 5), (1, 1, 1),
+              (1, 2048, 128)]
+MLA_SERVED = (4, 8192, 128)
 WKV_SOURCE = "src/repro_torch/kernels/rwkv_wkv/csrc/rwkv_wkv.cu"
 WKV_REPLACES = "src/repro/kernels/rwkv_wkv/kernel.py:21"
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
@@ -513,16 +527,19 @@ LM_DECODE_SHALLOW_RTOL = 1e-5
 # fixed per model between the plain op's floor and the controls (PERF.md)
 LM_RTOL = {"qwen1.5-4b": 5e-2, "rwkv6-3b": 8e-2}
 # phases 25-27: the MoE, MLA and hybrid families at full width; each
-# config's phase, depth (None: its own), prefill (B, S), flash-attention
-# launches in one prefill step, and whether the launcher serves it (it
-# runs the whole config: deepseek-v2-236b's 60 layers do not fit a card)
+# config's phase, depth (None: its own), prefill (B, S), attention-kernel
+# launches in one prefill step (flash attention's; deepseek-v2-236b's MLA
+# kernel, by dtype: the float32 prefill keeps the formula), and whether the
+# launcher serves it (it runs the whole config: deepseek-v2-236b's 60
+# layers do not fit a card)
 FAMILIES = {
     "granite-moe-3b-a800m": dict(phase=25, layers=None, prefill=(4, 2048),
                                  launches=32, launcher=True),
     "zamba2-7b": dict(phase=26, layers=None, prefill=(4, 2048), launches=3,
                       launcher=True),
     "deepseek-v2-236b": dict(phase=27, layers=2, prefill=(1, 2048),
-                             launches=0, launcher=False),
+                             launches={"bfloat16": 2, "float32": 0},
+                             launcher=False),
 }
 # their limits, set from the readings (PERF.md §6): bfloat16 kernel prefill
 # 2.815e-02 / 2.607e-02 / 0 (granite's with 7,054 of 8,192 tokens routed
@@ -1572,7 +1589,8 @@ def routing_diff(a, b):
     return diff
 
 
-def lm_prefill_checks(cfg, params, tokens, ops, op_name, replacements):
+def lm_prefill_checks(cfg, params, tokens, ops, op_name, replacements,
+                      counted=None):
     """The prefill step with the kernel (launches counted just around it)
     against the plain prefill (``use_kernel=False``), and the same kernel
     prefill with ``ops.<op_name>`` replaced: ``replacements`` maps a name
@@ -1580,7 +1598,8 @@ def lm_prefill_checks(cfg, params, tokens, ops, op_name, replacements):
     replacement's logits are measured against the plain prefill and
     against the kernel prefill.  Where the op counts its launches by route
     (``ops.LAUNCHES_BY_ROUTE``), those counts are set to 0 and read with
-    ``ops.LAUNCHES``.  For an MoE model, the tokens whose top-k set
+    ``ops.LAUNCHES``; ``counted`` names another kernel op module to count
+    (the MLA op under ``mla_apply``).  For an MoE model, the tokens whose top-k set
     differs in some layer from the plain prefill's are counted for the
     kernel prefill and each replacement (``flips``), and the summed aux
     loss of the kernel and the plain prefill is returned (``aux``)."""
@@ -1588,7 +1607,7 @@ def lm_prefill_checks(cfg, params, tokens, ops, op_name, replacements):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.runtime import make_prefill_step
     kernel_step = make_prefill_step(cfg, use_kernel=True)
-    counted = ops if hasattr(ops, "LAUNCHES") else fa_ops
+    counted = counted or (ops if hasattr(ops, "LAUNCHES") else fa_ops)
     by_route = getattr(counted, "LAUNCHES_BY_ROUTE", {})
     counted.LAUNCHES = 0
     for name in by_route:
@@ -1789,7 +1808,8 @@ def free(device):
 
 
 def phase_lm(device, gen, arch, seed, ops, op_name, plain_op,
-             controls=None, layers=None, prefill=LM_PREFILL, launcher=True):
+             controls=None, layers=None, prefill=LM_PREFILL, launcher=True,
+             counted=None):
     """One full-width model (at ``layers`` deep when given, else its own
     depth).  In float32 (the algorithm at full size): the kernel prefill
     against the plain prefill, the controls, decode against prefill.  In
@@ -1799,7 +1819,8 @@ def phase_lm(device, gen, arch, seed, ops, op_name, plain_op,
     where ``plain_op`` is None: no kernel on the path), decode against
     prefill, the engine, the launcher (unless ``launcher`` is False),
     times.  ``controls`` map a name to a replacement of ``ops.<op_name>``
-    (default: its output zeroed, its S and H axes swapped)."""
+    (default: its output zeroed, its S and H axes swapped); ``counted``
+    as ``lm_prefill_checks``'."""
     import dataclasses
     import torch
     from torch.utils import _pytree as pytree
@@ -1818,7 +1839,8 @@ def phase_lm(device, gen, arch, seed, ops, op_name, plain_op,
         torch.cuda.reset_peak_memory_stats(device)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = init_params(cfg32, gen, device=device)
-    f32 = lm_prefill_checks(cfg32, params, tokens, ops, op_name, controls)
+    f32 = lm_prefill_checks(cfg32, params, tokens, ops, op_name, controls,
+                            counted)
     f32["dec"] = lm_decode_vs_prefill(cfg32, params, tokens[:Bd, :Sd])
     del params
     free(device)
@@ -1842,7 +1864,7 @@ def phase_lm(device, gen, arch, seed, ops, op_name, plain_op,
     floor = {} if plain_op is None else \
         {"plain op": lambda real: plain_op}
     bf16 = lm_prefill_checks(cfg, params, tokens, ops, op_name,
-                             {**floor, **controls})
+                             {**floor, **controls}, counted)
     bf16["dec"] = lm_decode_vs_prefill(cfg, params, tokens[:Bd, :Sd])
     engine = lm_engine(cfg, params, gen, device)
     times = dict(kernel_s=prefill_time(cfg, params, tokens, True),
@@ -1863,8 +1885,9 @@ def phase_lm(device, gen, arch, seed, ops, op_name, plain_op,
 
 
 def check_lm(res, name, want_launches, tag, want_routes=None):
-    """The hard checks of phases 14, 15 and 25-27.  ``want_routes`` maps a
-    dtype name to the one route all of that prefill's launches must take.
+    """The hard checks of phases 14, 15 and 25-27.  ``want_launches`` is
+    a count, or a count by dtype name; ``want_routes`` maps a dtype name to
+    the one route all of that prefill's launches must take.
     An MoE model's summed aux loss is finite and within the float32 limit
     between the kernel and the plain prefill, in both types; a model with
     no launch on its path gives the plain prefill's logits bit for bit."""
@@ -1877,14 +1900,16 @@ def check_lm(res, name, want_launches, tag, want_routes=None):
                   and abs(a_k - a_p) <= LM_F32_RTOL * abs(a_p),
                   f"phase {tag}: {kind} aux loss kernel {a_k!r} vs plain "
                   f"{a_p!r}")
-        if want_launches == 0:
+        n_want = want_launches[kind] if isinstance(want_launches, dict) \
+            else want_launches
+        if n_want == 0:
             check(r["same"], f"phase {tag}: a {kind} prefill without kernel "
                   "launches differs from use_kernel=False")
-        check(r["launches"] == want_launches,
+        check(r["launches"] == n_want,
               f"phase {tag}: {r['launches']} {name} launches in one "
-              f"{kind} prefill step, expected {want_launches}")
-        if want_routes:
-            want = {route: want_launches if route == want_routes[kind] else 0
+              f"{kind} prefill step, expected {n_want}")
+        if want_routes and kind in want_routes:
+            want = {route: n_want if route == want_routes[kind] else 0
                     for route in r["routes"]}
             check(r["routes"] == want, f"phase {tag}: {name} launches by "
                   f"route in one {kind} prefill step {r['routes']}, "
@@ -3812,6 +3837,59 @@ def zeroed(op):
     return fn
 
 
+def mla_kernel_off(op):
+    """``mla_apply`` with its core on the plain formula: the floor of the
+    MLA kernel's prefill against ``use_kernel=False``."""
+    def fn(*args, use_kernel=False, **kw):
+        return op(*args, **kw)
+    return fn
+
+
+def phase_mla_vs_plain(device, gen, shapes, served):
+    """The MLA kernel (via the op) against its plain version at
+    DeepSeek-V2's widths, q_nope a view of the (B, S, H, 192) query, one
+    launch each, under ``bf16_limit``; then its time at ``served`` (B, S,
+    H) by CUDA events and its bound (2·(192 + 128) FLOP a head and causal
+    pair at the bf16 rate; q, k, v read and o written once)."""
+    import torch
+    from repro_torch.kernels.mla_attention import kernel, ops, ref
+
+    def inputs(B, S, H):
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device=device).to(
+                torch.bfloat16)
+        return r(B, S, H, 192)[..., 64:], r(B, S, H, 64), r(B, S, H, 128), \
+            r(B, S, 64), r(B, S, H, 128)
+    scale = 1.5896 / 192 ** 0.5
+    worst, launches = {}, 0
+    for B, S, H in shapes:
+        ts = inputs(B, S, H)
+        before = ops.LAUNCHES_BY_ROUTE["tc"]
+        got = ops.mla_attention(*ts, scale=scale)
+        sync(device)
+        check(ops.LAUNCHES_BY_ROUTE["tc"] == before + 1, f"phase 31: "
+              f"mla_attention at {(B, S, H)} did not launch once on tc")
+        launches += ops.LAUNCHES_BY_ROUTE["tc"] - before
+        want = ref.mla_attention_ref(*ts, scale=scale)
+        worst[(B, S, H)] = check_close(got, want, torch.bfloat16,
+                                       f"mla_attention vs plain at "
+                                       f"{(B, S, H)}")
+        del ts, got, want
+    B, S, H = served
+    ts = inputs(B, S, H)
+    ms = cuda_time_ms(lambda: kernel.launch(*ts, scale), reps=10)
+    flops = 2 * (192 + 128) * B * H * S * (S + 1) / 2
+    nbytes = 2 * B * S * (H * (128 + 64) + H * 128 + 64 + 2 * H * 128)
+    t_flops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    del ts
+    free(device)
+    return dict(worst=worst, launches=launches, ms=ms,
+                err=max(worst.values()), bound_ms=max(t_flops, t_bytes),
+                bound_by="operations" if t_flops >= t_bytes else "bytes",
+                tflops=flops / ms / 1e9)
+
+
 def reversed_sequence(op):
     """A replacement of an attention layer whose output (B, S, d) has its
     sequence reversed (a layout fault of the sequence axis)."""
@@ -4183,9 +4261,10 @@ def main(argv=None) -> None:
                           ("simplex_proj", SIMPLEX_SOURCE),
                           ("flash_attention",
                            f"{FA_SOURCE} and {FA_SIMT_SOURCE}"),
-                          ("rwkv_wkv", WKV_SOURCE)):
+                          ("rwkv_wkv", WKV_SOURCE),
+                          ("mla_attention", MLA_SOURCE)):
         ptx = ptxas_summary(_build.build_log(kname))
-        say("2 build", f"{kname} from {source} (all four in {built_s:.1f} s,"
+        say("2 build", f"{kname} from {source} (all five in {built_s:.1f} s,"
             f" 0 if cached): {ptx}")
     if previous:
         say("2 build", f"earlier batched_cg, simplex_proj and rwkv_wkv from "
@@ -4765,6 +4844,7 @@ def main(argv=None) -> None:
     say("24 time", f"{time.perf_counter() - t_phase:.1f} s")
 
     # 25. granite-moe-3b-a800m, 26. zamba2-7b, 27. deepseek-v2-236b
+    from repro_torch.kernels.mla_attention import ops as mla_ops
     from repro_torch.models import layers as model_layers
     fam = {}
     for arch, spec in FAMILIES.items():
@@ -4772,18 +4852,21 @@ def main(argv=None) -> None:
         tag = spec["phase"]
         shape = dict(layers=spec["layers"], prefill=spec["prefill"],
                      launcher=spec["launcher"])
-        if spec["launches"]:
+        if not isinstance(spec["launches"], dict):
+            kname, routes = "flash_attention", {"bfloat16": "tc",
+                                                "float32": "simt"}
             res = phase_lm(device, gen, arch, args.seed, fa_ops,
                            "flash_attention", attention_ref, **shape)
-        else:      # MLA never reaches the kernel: the controls act on it
+        else:      # MLA: its kernel in bf16; the controls act on mla_apply
+            kname, routes = "mla_attention", {"bfloat16": "tc"}
             res = phase_lm(device, gen, arch, args.seed, model_layers,
                            "mla_apply", None, controls={
+                               "plain op": mla_kernel_off,
                                "zeroed output": zeroed,
                                "reversed sequence": reversed_sequence},
-                           **shape)
-        check_lm(res, "flash_attention", spec["launches"], tag,
-                 {"bfloat16": "tc", "float32": "simt"})
-        say_lm(res, f"{tag} {arch}", "flash_attention")
+                           counted=mla_ops, **shape)
+        check_lm(res, kname, spec["launches"], tag, routes)
+        say_lm(res, f"{tag} {arch}", kname)
         say(f"{tag} times", f"[{card}] " + say_lm_times(res))
         say(f"{tag} time", f"{time.perf_counter() - t_phase:.1f} s")
         fam[arch] = res
@@ -4814,6 +4897,18 @@ def main(argv=None) -> None:
     say_second_order(s30, card, SECOND["B"], SECOND["loop"], SECOND["rhs"])
     say("30 time", f"{time.perf_counter() - t_phase:.1f} s")
 
+    # 31. the MLA kernel against plain, and its time
+    t_phase = time.perf_counter()
+    s31 = phase_mla_vs_plain(device, gen, MLA_SHAPES, MLA_SERVED)
+    say("31 mla vs plain", f"[{card}] max |Δ| per (B, S, H) at q 128 + 64, "
+        "v 128, bfloat16 causal: " + ", ".join(
+            f"{k}={e:.2e}" for k, e in s31["worst"].items())
+        + f"; {s31['launches']} tc launches | {MLA_SERVED}: "
+        f"{s31['ms']:.3f} ms ({s31['tflops']:.1f} TFLOP/s, "
+        f"{s31['bound_ms'] / s31['ms'] * 100:.1f} % of the bound "
+        f"{s31['bound_ms']:.3f} ms, {s31['bound_by']})")
+    say("31 time", f"{time.perf_counter() - t_phase:.1f} s")
+
     say("total", f"{time.perf_counter() - t_start:.1f} s")
     launches = s4["launches"] + s5["launches"] + s6["fwd"] + s6["bwd"] \
         + s7["launches"] + s17["grad"]["launches"] \
@@ -4835,7 +4930,8 @@ def main(argv=None) -> None:
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
         "replaces": FA_REPLACES,
         "launches": s14["bf16"]["routes"]["tc"] + sum(
-            r["bf16"]["routes"]["tc"] for r in fam.values())
+            r["bf16"]["routes"]["tc"] for a, r in fam.items()
+            if not isinstance(FAMILIES[a]["launches"], dict))
         + s29["prefill"]["routes"]["tc"],
         "max_abs_err": err12, "ms": t16["ms"], "plain_ms": t16["plain_ms"],
         "bound_ms": t16["bound_ms"], "bound_by": t16["bound_by"],
@@ -4844,8 +4940,14 @@ def main(argv=None) -> None:
         "replaces": WKV_REPLACES, "launches": s15["bf16"]["launches"],
         "max_abs_err": err13, "ms": w16["ms"], "plain_ms": w16["plain_ms"],
         "bound_ms": w16["bound_ms"], "bound_by": w16["bound_by"],
-        "library_ms": None, "previous_ms": w16["previous_ms"]}]}),
-        flush=True)
+        "library_ms": None, "previous_ms": w16["previous_ms"]}, {
+        "name": "mla_attention", "route": "cuda", "source": MLA_SOURCE,
+        "replaces": None,
+        "launches": fam["deepseek-v2-236b"]["bf16"]["routes"]["tc"]
+        + s31["launches"], "max_abs_err": s31["err"], "ms": s31["ms"],
+        "plain_ms": None, "bound_ms": s31["bound_ms"],
+        "bound_by": s31["bound_by"], "library_ms": None,
+        "previous_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
 

@@ -18,6 +18,30 @@ class MoEConfig:
     top_k: int = 2
     expert_d_ff: int = 0            # per-expert FFN width
     router_aux_loss: float = 0.001  # load-balancing loss weight
+    # DeepSeek-V2 routing: the top-k is taken within the ``topk_group``
+    # groups (of ``n_group`` equal groups of experts) whose largest
+    # probability is highest; 1 / 1 is the plain top-k over all experts
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True     # renormalise the top-k weights to sum 1
+    routed_scaling_factor: float = 1.0   # multiplies the routed weights
+    # the routed experts held here (expert parallelism's share of one
+    # device): experts first_held .. first_held + num_held - 1 of the
+    # router's num_experts; 0 holds them all
+    first_held: int = 0
+    num_held: int = 0
+
+    @property
+    def held(self) -> Tuple[int, int]:
+        """(first, end) of the routed experts held here."""
+        n = self.num_held or self.num_experts - self.first_held
+        return self.first_held, self.first_held + n
+
+    @property
+    def is_share(self) -> bool:
+        """Whether only part of the routed experts is held here."""
+        first, end = self.held
+        return first > 0 or end < self.num_experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +80,14 @@ class ArchConfig:
     qk_rope_head_dim: int = 64
     qk_nope_head_dim: int = 128
     v_head_dim: int = 128
+    # YaRN rotary scaling (DeepSeek-V2's rope_scaling); factor 1 is plain
+    # RoPE
+    yarn_factor: float = 1.0
+    yarn_original_max_position: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     moe_layer_start: int = 0        # DeepSeek: first k layers dense

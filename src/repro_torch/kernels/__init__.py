@@ -27,11 +27,17 @@ rwkv_wkv/     — the RWKV-6 WKV recurrence, the RWKV models' prefill time
                 head), each thread keeping an 8 × 4 tile of the state in
                 registers, the inputs staged by ``cp.async`` a chunk ahead
                 (counterpart of ``repro/kernels/rwkv_wkv``)
+mla_attention/ — DeepSeek-V2's MLA prefill attention core: 192-wide query
+                and key heads (128 nope + 64 rope, the rope key one vector
+                shared by every head), 128-wide values; CUDA C++ for
+                sm_90a, the flash_attention ``tc`` design (wgmma and TMA,
+                ``hopper.cuh`` shared) with separate key and value widths
+                (no TPU counterpart: the JAX package's MLA is einsums)
 
 Each kernel ships ``csrc/*.cu`` (the CUDA source), ``kernel.py`` (its
 ctypes binding), ``ops.py`` (the public op, which launches the kernel on
 CUDA tensors and runs ``ref.py`` on CPU tensors) and ``ref.py`` (the plain
 PyTorch version).  ``_build.py`` compiles the sources with ``nvcc`` at
-first use, all four at once.  Every TPU kernel of the JAX package has
-its counterpart here.
+first use, all at once.  Every TPU kernel of the JAX package has its
+counterpart here.
 """

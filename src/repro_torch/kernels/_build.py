@@ -11,7 +11,8 @@ at first use::
          -o build/kernels/lib<name>_<hash>.so <sources>
 
 The library name carries a hash of every file under the kernel's
-``csrc/`` directory, its sources and the flags, so an edited source or
+``csrc/`` directory (and the directories of the headers it shares), its
+sources and the flags, so an edited source or
 header is rebuilt and a stale library is never loaded.
 ``build()`` starts one ``nvcc`` per missing library, all at once, and
 waits for every one of them; the compiler's output (``-Xptxas -v``:
@@ -39,10 +40,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 class Kernel(NamedTuple):
-    """One library: its ``csrc/`` directory and the ``.cu`` files in it
-    that are compiled."""
+    """One library: its ``csrc/`` directory, the ``.cu`` files in it that
+    are compiled, and the ``csrc/`` directories of other libraries whose
+    headers its sources include (hashed with its own)."""
     csrc: Path
     sources: Tuple[str, ...]
+    shared: Tuple[Path, ...] = ()
 
 
 KERNELS = {
@@ -53,6 +56,10 @@ KERNELS = {
     "flash_attention": Kernel(_HERE / "flash_attention" / "csrc",
                               ("flash_attention.cu", "flash_attention_tc.cu")),
     "rwkv_wkv": Kernel(_HERE / "rwkv_wkv" / "csrc", ("rwkv_wkv.cu",)),
+    # includes flash_attention's hopper.cuh
+    "mla_attention": Kernel(_HERE / "mla_attention" / "csrc",
+                            ("mla_attention.cu",),
+                            (_HERE / "flash_attention" / "csrc",)),
 }
 
 _lock = threading.Lock()
@@ -77,13 +84,14 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the built library for kernel ``name`` lives, named by a hash
-    of every file under its ``csrc/`` (path and bytes), its sources and
-    the flags."""
+    of every file under its ``csrc/`` and its ``shared`` directories (path
+    and bytes), its sources and the flags."""
     kern = KERNELS[name]
     h = hashlib.sha256()
-    for f in sorted(p for p in kern.csrc.rglob("*") if p.is_file()):
-        h.update(f.relative_to(kern.csrc).as_posix().encode() + b"\0")
-        h.update(f.read_bytes() + b"\0")
+    for d in (kern.csrc,) + kern.shared:
+        for f in sorted(p for p in d.rglob("*") if p.is_file()):
+            h.update(f.relative_to(d.parent).as_posix().encode() + b"\0")
+            h.update(f.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS + kern.sources).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -138,15 +138,6 @@ struct Tile {
   static constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;
 };
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_forward_tc(const __grid_constant__ CUtensorMap tm_q,
@@ -336,8 +327,8 @@ fa_forward_tc(const __grid_constant__ CUtensorMap tm_q,
         else mx_B = fmaxf(mx_B, x);
       }
     }
-    const float mn_A = fmaxf(m_A, quad_max(mx_A) * scale_log2);
-    const float mn_B = fmaxf(m_B, quad_max(mx_B) * scale_log2);
+    const float mn_A = fmaxf(m_A, hopper::quad_max(mx_A) * scale_log2);
+    const float mn_B = fmaxf(m_B, hopper::quad_max(mx_B) * scale_log2);
     const float alpha_A = hopper::exp2_approx(m_A - mn_A);
     const float alpha_B = hopper::exp2_approx(m_B - mn_B);
     m_A = mn_A;
@@ -374,8 +365,8 @@ fa_forward_tc(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // epilogue
-  const float inv_A = 1.f / fmaxf(quad_sum(l_A), 1e-30f);
-  const float inv_B = 1.f / fmaxf(quad_sum(l_B), 1e-30f);
+  const float inv_A = 1.f / fmaxf(hopper::quad_sum(l_A), 1e-30f);
+  const float inv_B = 1.f / fmaxf(hopper::quad_sum(l_B), 1e-30f);
   const long long row_stride = (long long)H * D;
   __nv_bfloat16* oA = o + ((long long)b * Sq + rA) * row_stride +
                       (long long)h * D;
@@ -393,39 +384,13 @@ fa_forward_tc(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled from the CUDA driver, without linking libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 4-D map over (D, heads, S, B) of a bf16 tensor with element strides
 // (head, sequence, batch) and unit stride along D; boxes of 64 columns by
 // `rows` positions of one head, 128-byte swizzle, zero fill out of bounds.
 int make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S,
              int B, long long s_head, long long s_seq, long long s_batch,
              int rows) {
-  EncodeTiled fn = encode_fn();
+  hopper::EncodeTiled fn = hopper::encode_fn();
   if (fn == nullptr) return -1000;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S),
                               cuuint64_t(B)};

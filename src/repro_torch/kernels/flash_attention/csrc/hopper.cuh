@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks in inline PTX for flash_attention_tc.cu:
-// mbarriers, TMA tensor loads, warpgroup register reallocation, and the
-// wgmma.mma_async products with their shared-memory descriptors.
+// Hopper (sm_90a) building blocks in inline PTX for flash_attention_tc.cu
+// and ../../mla_attention/csrc/mla_attention.cu: mbarriers, TMA tensor
+// loads, warpgroup register reallocation, the wgmma.mma_async products with
+// their shared-memory descriptors, and the quad reductions of their
+// accumulator fragments.
 //
 // Shared-memory tiles are bf16 panels of 64 columns (128 bytes a row),
 // written by TMA with CU_TENSOR_MAP_SWIZZLE_128B and based on 1024-byte
@@ -18,6 +20,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -91,6 +94,20 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// One box of a 3-D tensor map (a tensor without a head axis, such as MLA's
+// rope key shared by every head) into shared memory, as tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // ---- warpgroups -------------------------------------------------------------
 
 template <int kRegs>
@@ -154,6 +171,16 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr,
 // bf16 pair (lo in the low half) as the 32-bit register of an A fragment
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// max and sum over the 4 lanes that hold one row of an accumulator fragment
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // 2^x on the special-function unit (ex2.approx: about 2 ulp; -inf -> +0)
@@ -419,4 +446,33 @@ struct WgmmaRS<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
+
+// ---- host ------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled from the CUDA driver, without linking libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
 }  // namespace hopper

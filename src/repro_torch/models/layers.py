@@ -18,6 +18,12 @@ GQA attention's inner product goes through the flash-attention op
 (``repro_torch.kernels.flash_attention``: the hand-written Hopper kernel on
 CUDA tensors) with ``use_kernel=True``, else through ``_sdpa``, which is
 that op's plain version (``kernels/flash_attention/ref.attention_ref``).
+MLA's goes through the MLA op (``repro_torch.kernels.mla_attention``:
+192-wide query and key heads, 128-wide values, the rope key shared by the
+heads) with ``use_kernel=True`` in a bfloat16 prefill without autograd,
+else through ``_mla_core``, the float32 einsum formula, which decode
+shares.  MLA's RoPE takes DeepSeek-V2's YaRN scaling where the config sets
+a factor (``yarn_rope``, ``mla_softmax_scale``).
 The reference's ``_sdpa`` also takes a ``q_offset`` that no caller sets;
 the port's has none (its mask is top-left, the reference's default).
 """
@@ -107,6 +113,59 @@ def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor
     ang = positions.to(torch.float32)[..., None] * _inv_freq(
         head_dim, theta, positions.device)
     return torch.cos(ang), torch.sin(ang)
+
+
+def yarn_get_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's attention-temperature factor (DeepSeek-V2's
+    ``yarn_get_mscale``): 0.1·mscale·ln(factor) + 1, and 1 for factor ≤ 1."""
+    if factor <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_correction_dim(rotations: float, dim: int, base: float,
+                         max_pos: int) -> float:
+    """The rotary dim whose wavelength makes ``rotations`` turns over
+    ``max_pos`` positions."""
+    return (dim * math.log(max_pos / (rotations * 2 * math.pi))
+            / (2 * math.log(base)))
+
+
+def yarn_inv_freq(cfg: ArchConfig, dim: int, device) -> torch.Tensor:
+    """YaRN's inverse frequencies (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``): interpolated (÷ factor) below the
+    correction range, extrapolated (RoPE's own) above it, blended by a
+    linear ramp between the correction dims of ``beta_fast`` and
+    ``beta_slow`` rotations over the original context."""
+    base, factor = cfg.rope_theta, cfg.yarn_factor
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    freq_extra = 1.0 / (base ** exps)
+    freq_inter = 1.0 / (factor * base ** exps)
+    max_pos = cfg.yarn_original_max_position
+    low = max(math.floor(_yarn_correction_dim(cfg.yarn_beta_fast, dim, base,
+                                              max_pos)), 0)
+    high = min(math.ceil(_yarn_correction_dim(cfg.yarn_beta_slow, dim, base,
+                                              max_pos)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    extra = 1.0 - ramp
+    return freq_inter * (1 - extra) + freq_extra * extra
+
+
+def yarn_rope(cfg: ArchConfig, dim: int, positions: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin of ``positions`` for a rotary width ``dim``: RoPE's
+    (``rope_freqs``) without a YaRN factor, else YaRN's frequencies with
+    cos and sin × mscale(mscale) / mscale(mscale_all_dim)."""
+    if cfg.yarn_factor <= 1:
+        return rope_freqs(dim, cfg.rope_theta, positions)
+    ang = positions.to(torch.float32)[..., None] * yarn_inv_freq(
+        cfg, dim, positions.device)
+    m = (yarn_get_mscale(cfg.yarn_factor, cfg.yarn_mscale)
+         / yarn_get_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim))
+    return torch.cos(ang) * m, torch.sin(ang) * m
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -375,10 +434,20 @@ def mla_init(gen, cfg: ArchConfig, device=None) -> Params:
     return p
 
 
+def mla_softmax_scale(cfg: ArchConfig) -> float:
+    """1/√(dr + dn), × YaRN's mscale(factor, mscale_all_dim)² where the
+    config sets ``yarn_mscale_all_dim`` (DeepSeek-V2's ``softmax_scale``)."""
+    scale = 1.0 / math.sqrt(cfg.qk_rope_head_dim + cfg.qk_nope_head_dim)
+    if cfg.yarn_mscale_all_dim:
+        scale *= yarn_get_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
+    return scale
+
+
 def mla_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
               positions: Optional[torch.Tensor] = None,
               kv_cache: Optional[Tuple] = None,
-              cache_index: Optional[int] = None):
+              cache_index: Optional[int] = None,
+              use_kernel: bool = False):
     """MLA attention.  Returns (out, new_cache).
 
     The cache holds the *compressed* latent and the shared rope key:
@@ -386,14 +455,18 @@ def mla_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
     ``attention_apply``, the new positions are written at ``cache_index``
     (clamped as ``lax.dynamic_update_slice`` clamps) **in place** into the
     given cache tensors, and the decode mask is a length mask only.
-    Logits, softmax and the weighted sum are float32, cast once to x's
-    type.  There is no ``use_kernel``: MLA never reaches the
-    flash-attention op, as in the reference."""
+
+    The core: with ``use_kernel``, a bfloat16 prefill (no cache) without
+    autograd goes through the MLA op (``kernels.mla_attention``: the Hopper
+    kernel on CUDA tensors, which reads the one rope key of every head in
+    place); everything else through ``_mla_core``, whose logits, softmax
+    and weighted sum are float32, cast once to x's type.  RoPE is YaRN's
+    where the config sets a factor (``yarn_rope``), and the softmax scale
+    ``mla_softmax_scale``."""
     B, S, _ = x.shape
     H = cfg.num_heads
     dr, dn, dv = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
     r_kv = cfg.kv_lora_rank
-    f32 = torch.float32
 
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -407,7 +480,7 @@ def mla_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
         q = x @ params["w_q"]
     q = split_last(q, H, dr + dn)
     q_rope, q_nope = q[..., :dr], q[..., dr:]
-    cos, sin = rope_freqs(dr, cfg.rope_theta, positions)
+    cos, sin = yarn_rope(cfg, dr, positions)
     q_rope = apply_rope(q_rope, cos, sin)
 
     dkv = x @ params["w_dkv"]
@@ -429,23 +502,39 @@ def mla_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
     Sk = latent_full.shape[1]
     k_nope = split_last(latent_full @ params["w_uk"], H, dn)
     v = split_last(latent_full @ params["w_uv"], H, dv)
+    scale = mla_softmax_scale(cfg)
+    if (use_kernel and kv_cache is None and x.dtype == torch.bfloat16
+            and not torch.is_grad_enabled() and not is_dtensor(x)):
+        from repro_torch.kernels.mla_attention import ops as mla_ops
+        out = mla_ops.mla_attention(q_nope, q_rope, k_nope, k_rope_full, v,
+                                    scale=scale)
+    else:
+        keys = torch.arange(Sk, device=x.device)
+        if valid is None:
+            mask = keys[None, :] <= torch.arange(S, device=x.device)[:, None]
+        else:
+            mask = keys < valid
+        out = _mla_core(q_nope, q_rope, k_nope, k_rope_full, v, scale, mask)
+    out = merge_last(out) @ params["w_o"]
+    return out, new_cache
 
-    scale = 1.0 / math.sqrt(dr + dn)
+
+def _mla_core(q_nope, q_rope, k_nope, k_rope, v, scale: float,
+              mask: torch.Tensor) -> torch.Tensor:
+    """softmax((q_nope·k_nope + q_rope·k_rope) · scale, masked) · v in
+    float32, cast to q's type: q_nope (B, S, H, dn), q_rope (B, S, H, dr),
+    k_nope (B, Sk, H, dn), k_rope (B, Sk, dr), v (B, Sk, H, dv); ``mask``
+    (S, Sk) or (Sk,) keeps the True entries."""
+    f32 = torch.float32
     logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.to(f32),
                            k_nope.to(f32))
               + torch.einsum("bqhd,bkd->bhqk", q_rope.to(f32),
-                             k_rope_full.to(f32))) * scale
-    keys = torch.arange(Sk, device=x.device)
-    if valid is None:
-        mask = keys[None, :] <= torch.arange(S, device=x.device)[:, None]
-    else:
-        mask = keys < valid
+                             k_rope.to(f32))) * scale
     logits = torch.where(replicated_like(mask, logits), logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     del logits
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(f32))
-    out = merge_last(out).to(x.dtype) @ params["w_o"]
-    return out, new_cache
+    return out.to(q_nope.dtype)
 
 
 def make_mla_cache(cfg: ArchConfig, batch: int, max_len: int,

@@ -62,26 +62,32 @@ product's output) and ``"dots_no_batch"`` (the 2-D products only, ``mm`` /
 serving steps) there is nothing to recompute and ``remat`` changes
 nothing.
 
-Behaviours of the reference kept as they are: ``moe_layer_start`` is not
-read (every layer of ``deepseek-v2-236b`` is MoE), MLA never reaches the
+Behaviours of the reference kept as they are: MLA never reaches the
 flash-attention op, and decode runs MoE with dense dispatch whatever
-``forward``'s ``moe_dispatch``.  ``forward``'s dense dispatch is the
-reference's on the CPU, under autograd and on a mesh; a forward on the
-card without autograd, large enough that dense dispatch's wasted products
-outweigh the dropless path's launches (``DROPLESS_MIN_WASTE_FLOP``), runs
-the same function by dropless dispatch (``moe.moe_apply_dropless``: each
-token through its top-k experts only).
+``forward``'s ``moe_dispatch``.  Beyond the reference, each behind a config
+field whose default keeps the reference's: the layers before
+``moe_layer_start`` of an MoE model are dense (a SwiGLU MLP of width
+``d_ff`` under ``model.mlp``; the reference does not read the field, and
+the registered configs leave it 0), MLA's core goes through the MLA op with
+``use_kernel`` (``layers.mla_apply``), and the MoE layer takes DeepSeek-V2's
+group-limited routing, weights and an expert share (``models/moe``).
+``forward``'s dense dispatch is the reference's on the CPU, under autograd
+and on a mesh; a forward on the card without autograd, large enough that
+dense dispatch's wasted products outweigh the dropless path's launches
+(``DROPLESS_MIN_WASTE_FLOP``), runs the same function by dropless dispatch
+(``moe.moe_apply_dropless``: each token through its top-k experts only).
 
 Spans (``observability.spans.span``: ranges in a ``torch.profiler`` trace
 while one records, spans of an installed tracer, one boolean check
 otherwise) name the forward's layers, one name per block kind:
 ``model.embed``; ``model.attention`` (``ln1``, the attention, the residual
 add), then ``model.mlp`` or ``model.moe`` (``ln2``, the MLP or the
-dispatch with its router ``model.moe.router``, the residual add);
+dispatch with its router ``model.moe.router`` and its shared experts
+``model.moe.shared``, the residual add);
 ``model.time_mix`` and ``model.channel_mix`` (RWKV-6); ``model.mamba`` and
 ``model.shared_attention`` (the hybrid); ``model.head`` (the final norm and
-the unembedding).  The kernel ops open ``kernels.flash_attention`` and
-``kernels.rwkv_wkv`` inside them.
+the unembedding).  The kernel ops open ``kernels.flash_attention``,
+``kernels.mla_attention`` and ``kernels.rwkv_wkv`` inside them.
 
 Differences of form from the reference, none of result:
 
@@ -129,8 +135,9 @@ SHARED_ATTN_EVERY = 27   # Zamba2: shared attention block cadence
 # Init
 # ---------------------------------------------------------------------------
 
-def _block_init(gen, cfg: ArchConfig, device) -> Params:
-    """One layer's params for the arch's (homogeneous) trunk."""
+def _block_init(gen, cfg: ArchConfig, device, moe: bool) -> Params:
+    """One layer's params for the arch's trunk: an MoE MLP where ``moe``
+    (``_is_moe``), else a dense one."""
     dt = L.torch_dtype(cfg)
     if cfg.family == "ssm":                       # RWKV-6
         return {"ln1": L.rmsnorm_init(cfg.d_model, dt, device),
@@ -144,8 +151,14 @@ def _block_init(gen, cfg: ArchConfig, device) -> Params:
             "ln2": L.rmsnorm_init(cfg.d_model, dt, device),
             "attn": (L.mla_init(gen, cfg, device) if cfg.use_mla
                      else L.attention_init(gen, cfg, device)),
-            "mlp": (X.moe_init(gen, cfg, device) if cfg.moe
+            "mlp": (X.moe_init(gen, cfg, device) if moe
                     else L.mlp_init(gen, cfg, device=device))}
+
+
+def _is_moe(cfg: ArchConfig, layer: int) -> bool:
+    """Whether trunk layer ``layer`` has an MoE MLP: every layer from
+    ``moe_layer_start`` on, in a model with MoE."""
+    return cfg.moe is not None and layer >= cfg.moe_layer_start
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator = None,
@@ -167,8 +180,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator = None,
                          f"the parameters go to {dev}")
     dt = L.torch_dtype(cfg)
     p = {"embed": L.embedding_init(gen, cfg, dev),
-         "blocks": [_block_init(gen, cfg, dev)
-                    for _ in range(cfg.num_layers)],
+         "blocks": [_block_init(gen, cfg, dev, _is_moe(cfg, i))
+                    for i in range(cfg.num_layers)],
          "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev)}
     if cfg.family == "hybrid":
         # shared attention (+ its MLP): ONE weight set reused across depth
@@ -191,17 +204,18 @@ def init_params_abstract(cfg: ArchConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 def _dense_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
-                 use_kernel: bool, moe_dispatch: str = "dense"):
+                 use_kernel: bool, moe: bool, moe_dispatch: str = "dense"):
+    """One attention layer; its MLP is MoE where ``moe`` (``_is_moe``)."""
     bp = gathered_over_batch(bp, h)
     with span("model.attention"):
         x = L.rmsnorm(bp["ln1"], h, cfg.norm_eps)
         if cfg.use_mla:
-            a, _ = L.mla_apply(bp["attn"], cfg, x)
+            a, _ = L.mla_apply(bp["attn"], cfg, x, use_kernel=use_kernel)
         else:
             a, _ = L.attention_apply(bp["attn"], cfg, x,
                                      use_kernel=use_kernel)
         h = h + reduced(a)
-    if not cfg.moe:
+    if not moe:
         with span("model.mlp"):
             mo = L.mlp_apply(bp["mlp"], L.rmsnorm(bp["ln2"], h, cfg.norm_eps),
                              cfg.mlp_activation)
@@ -218,7 +232,8 @@ def _dense_block(bp: Params, cfg: ArchConfig, h: torch.Tensor,
 
 
 # Dense dispatch's expert products spend 6·(E - k)·N·d·f FLOP a layer on
-# rows the router did not choose.  Dropless dispatch launches about twice
+# rows the router did not choose (over E experts held here, k·E/E_all of
+# whose pairs a token routes here).  Dropless dispatch launches about twice
 # as many ops a layer, 0.7-0.95 ms more host time on an H100's host at 2 k
 # to 8 k tokens, which paces a small forward.  Below this much waste (about
 # the products' time for it at the 600-775 TFLOP/s they reach there) the
@@ -236,7 +251,10 @@ def _dropless(x: torch.Tensor, cfg: ArchConfig) -> bool:
     the reference's formulation, which autograd and DTensor's sharding
     rules go through."""
     m = cfg.moe
-    waste = 6 * (m.num_experts - m.top_k) * x.numel() * m.expert_d_ff
+    first, end = m.held
+    held = end - first
+    waste = (6 * (held - m.top_k * held / m.num_experts) * x.numel()
+             * m.expert_d_ff)
     return (x.is_cuda and not is_dtensor(x) and not torch.is_grad_enabled()
             and waste >= DROPLESS_MIN_WASTE_FLOP)
 
@@ -353,13 +371,15 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
     block takes ``act_sharding`` (see the module docstring)."""
     with span("model.embed"):
         h = constrain(_embed_inputs(params, cfg, inputs), act_sharding)
+    # block(bp, h, moe): ``moe`` is ``_is_moe`` of the layer (the RWKV and
+    # Mamba trunks have no MoE)
     if cfg.family == "ssm":
-        block = lambda bp, h: _rwkv_block(bp, cfg, h, use_kernel)
+        block = lambda bp, h, moe=False: _rwkv_block(bp, cfg, h, use_kernel)
     elif cfg.family == "hybrid":
-        block = lambda bp, h: _mamba_block(bp, cfg, h)
+        block = lambda bp, h, moe=False: _mamba_block(bp, cfg, h)
     else:
-        block = lambda bp, h: _dense_block(bp, cfg, h, use_kernel,
-                                           moe_dispatch)
+        block = lambda bp, h, moe: _dense_block(bp, cfg, h, use_kernel, moe,
+                                                moe_dispatch)
     if remat and torch.is_grad_enabled():
         block = _rematted(block, remat_policy)
 
@@ -377,15 +397,16 @@ def forward(params: Params, cfg: ArchConfig, inputs: torch.Tensor,
                                       use_kernel)
             h = constrain(h, act_sharding)
     else:
-        for bp in blocks:
-            h, aux = block(bp, h)
+        for i, bp in enumerate(blocks):
+            h, aux = block(bp, h, _is_moe(cfg, i))
             h = constrain(h, between)
             auxs.append(aux)
     with span("model.head"):
         h = L.rmsnorm(params["final_norm"], constrain(h, act_sharding),
                       cfg.norm_eps)
         logits = L.unembed(params["embed"], h)
-    aux_total = torch.stack(auxs).sum() if cfg.moe else 0.0
+    moe_aux = [a for a in auxs if isinstance(a, torch.Tensor)]
+    aux_total = torch.stack(moe_aux).sum() if moe_aux else 0.0
     return logits, aux_total
 
 
@@ -567,7 +588,7 @@ def decode_step(params: Params, cfg: ArchConfig, state: DecodeState,
                         cache_index=idx)
             h = h + a
             m_in = L.rmsnorm(bp["ln2"], h, cfg.norm_eps)
-            if cfg.moe:       # decode MoE is dense dispatch, as the reference
+            if _is_moe(cfg, l):   # dense dispatch, as the reference
                 mo, _ = X.moe_apply_dense(bp["mlp"], cfg, m_in)
             else:
                 mo = L.mlp_apply(bp["mlp"], m_in, cfg.mlp_activation)

@@ -14,7 +14,8 @@ the port's own gate:
     launched inside it is tied to it by the launch's correlation id.
   * While a tracer is installed, the span is recorded to it (below).
   * :func:`count` adds to a counter of the process-global
-    ``MetricsRegistry`` under the same gate.
+    ``MetricsRegistry`` under the same gate (a count that lives on the
+    device is computed and read to the host only then).
 
 A :class:`Tracer` records **spans** (named intervals with parent ids, so
 nested work reconstructs as a tree) and **events** (instants forwarded
@@ -295,7 +296,11 @@ def span(name: str, **tags):
 
 def count(name: str, n: float = 1.0, **labels) -> None:
     """Add ``n`` to the global registry's counter ``name{labels}`` while a
-    profiler records or a tracer is installed; nothing otherwise."""
+    profiler records or a tracer is installed; nothing otherwise.  ``n``
+    may be a one-element tensor on the device, or a function that returns
+    one: it is called and read to the host only while the gate is open."""
     if _tracer is None and not _profiler_enabled():
         return
-    _metrics.global_registry().counter(name, **labels).inc(n)
+    if callable(n):
+        n = n()
+    _metrics.global_registry().counter(name, **labels).inc(float(n))

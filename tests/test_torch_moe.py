@@ -245,7 +245,7 @@ def test_dense_block_takes_dropless_only_on_the_card_without_autograd(
     waste = 6 * (m.num_experts - m.top_k) * h.numel() * m.expert_d_ff
     monkeypatch.setattr(mdl, "DROPLESS_MIN_WASTE_FLOP",
                         waste + (case == "card, too few tokens"))
-    want, _ = mdl._dense_block(bp, tcfg, h, False)
+    want, _ = mdl._dense_block(bp, tcfg, h, False, True)
     if case != "cpu":
         h = h.as_subclass(_OnCard)
     if case == "dtensor":
@@ -257,7 +257,7 @@ def test_dense_block_takes_dropless_only_on_the_card_without_autograd(
             return _real(*args)
         monkeypatch.setattr(TX, name, wrapped)
     with torch.set_grad_enabled(case == "autograd"):
-        got, _ = mdl._dense_block(bp, tcfg, h, False)
+        got, _ = mdl._dense_block(bp, tcfg, h, False, True)
     assert called == ["moe_apply_dropless" if case == "card"
                       else "moe_apply_dense"]
     _close(got.as_subclass(torch.Tensor), want.numpy())

@@ -12,7 +12,10 @@
   * ``moe_expert_rows_total`` counts E·N computed and k·N routed rows under
     dense dispatch (routed ÷ computed = k/E), E·cap computed under the
     sparse gather and k·N computed under dropless dispatch (the forward
-    made to take it on the CPU).
+    made to take it on the CPU); under deepseek-v2-236b's expert share, in
+    every layer the pairs routed here, at most the rows computed.
+  * deepseek-v2-236b in bfloat16 opens ``kernels.mla_attention``,
+    ``model.mlp`` in its dense layer 0 and ``model.moe.shared``.
   * On the card (``cuda`` marker): a forward without autograd (the size
     rule set to 0) takes dropless dispatch, counts k·N computed rows, and
     gives dense dispatch's logits within the bfloat16 two-path bound of
@@ -268,6 +271,70 @@ def test_a_forward_on_the_card_runs_dropless_dispatch(cuda_device,
         3e-2 * torch.linalg.vector_norm(w)
     keep = ~flipped.cpu()
     torch.testing.assert_close(g[keep], w[keep], atol=0.15, rtol=0.1)
+
+
+def test_a_profiled_deepseek_prefill_names_its_spans():
+    """deepseek-v2-236b at its benchmark file's smoke size in bfloat16 (the
+    MLA op's path): ``kernels.mla_attention`` inside every
+    ``model.attention``, ``model.mlp`` in the dense layer 0, and inside
+    every ``model.moe`` the router and ``model.moe.shared``."""
+    cfg = dataclasses.replace(_config("deepseek-v2-236b"), dtype="bfloat16")
+    assert cfg.moe_layer_start == 1 and cfg.moe.is_share
+    params = mdl.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    step = make_prefill_step(cfg, use_kernel=True)
+    x = _tokens(cfg)
+    step(params, x)
+    with torch.profiler.profile() as prof:
+        step(params, x)
+    L, n = cfg.num_layers, cfg.num_layers - cfg.moe_layer_start
+    assert collections.Counter(_ranges(prof)) == collections.Counter({
+        ("model.embed", None): 1, ("model.head", None): 1,
+        ("model.attention", None): L,
+        ("kernels.mla_attention", "model.attention"): L,
+        ("model.mlp", None): L - n, ("model.moe", None): n,
+        ("model.moe.router", "model.moe"): n,
+        ("model.moe.shared", "model.moe"): n})
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "dropless"])
+def test_expert_rows_under_a_share(dispatch, monkeypatch):
+    """deepseek-v2-236b's smoke share (4 of 16 routed experts): in every
+    layer the pairs routed here are counted as routed, at most the rows
+    computed (E_held·N under dense dispatch, the routed pairs and one
+    padding row under dropless dispatch), and only while tracing."""
+    cfg = _config("deepseek-v2-236b")
+    Eh = cfg.moe.held[1] - cfg.moe.held[0]
+    params = mdl.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    x = _tokens(cfg, batch=2, seq=16)
+    N = x.numel()
+    if dispatch == "dropless":
+        monkeypatch.setattr(mdl, "_dropless", lambda t, cfg: True)
+    layers = []
+    real = moe._count_rows
+
+    def recording(computed, routed):
+        real(computed, routed)
+        layers.append((float(computed),
+                       float(routed() if callable(routed) else routed)))
+    monkeypatch.setattr(moe, "_count_rows", recording)
+    reg = metrics.global_registry()
+    before = _rows(reg)
+    with torch.no_grad():
+        mdl.forward(params, cfg, x, remat=False)
+        assert _rows(reg) == before
+        with torch.profiler.profile():
+            mdl.forward(params, cfg, x, remat=False)
+    got = [(a - b) for a, b in zip(_rows(reg), before)]
+    n = cfg.num_layers - cfg.moe_layer_start
+    assert len(layers) == 2 * n
+    traced = layers[n:]
+    assert got == [sum(c for c, _ in traced), sum(r for _, r in traced)]
+    for computed, routed in traced:
+        assert 0 < routed <= computed
+        want = Eh * N if dispatch == "dense" else routed + 1
+        assert computed == want
 
 
 def test_the_clock_record_places_a_span_on_the_profiler_timeline(tmp_path):
